@@ -1,0 +1,417 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the fused-jet CUDA kernels from ``pinn_elastodynamics_torch/kernels/
+csrc/fused_jet.cu`` (one ``nvcc`` call, first use only), then, in order:
+
+1. prints the card (``nvidia-smi`` name and power limit) and versions;
+2. builds or loads the kernel library and prints the build seconds;
+3. holds each kernel to its plain PyTorch version run in float64 on the card
+   (B1 seeded at the Fourier64 plate widths, B1 raw-coordinate with lb/ub,
+   B4 at the net-BC plate widths; order 1 and 2; N = 65,536 and 1,000);
+4. serves both quarter-plate models at full width (random weights from a
+   numpy seed, through ``params_from_jax``) behind ``FieldServer`` and checks
+   every answer against a direct evaluation, the direct evaluation against
+   the plain float64 forward, and the launch counts of the kernels;
+5. times each kernel and its plain version with CUDA events, and
+   ``predict_fields`` of both models;
+
+and prints one JSON line describing the kernels, then, only if every phase
+passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
+raises and exits non-zero.  Without a CUDA GPU, or without the package next
+to it, it exits non-zero before printing a result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+import urllib.request
+
+import numpy as np
+
+SEED = 20261017
+N_BIG = 65536
+N_RAGGED = 1000
+TOL_FD = 1e-5     # max|err| / max(1, max|ref|) on f and d
+TOL_DTT = 5e-5    # the same on dtt
+T_SERVE = 2.5
+REQUEST_SIZES = (1, 8192, 100_000)
+F32_PEAK_FLOPS = 67e12   # H100 SXM, f32 on the CUDA cores (dense)
+HBM_BYTES_PER_S = 3.35e12
+FOURIER = 64
+FOURIER_SCALE = 2.0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line(torch) -> str:
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+        line = proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else ""
+    except (OSError, subprocess.TimeoutExpired, IndexError):
+        line = ""
+    return line or f"{torch.cuda.get_device_name(0)}, power limit not read"
+
+
+def mlp_tree(rng, dims):
+    """Random tanh-MLP parameters in the JAX layout (numpy f32)."""
+    layers = []
+    for fi, fo in zip(dims[:-1], dims[1:]):
+        w = rng.standard_normal((fi, fo)) * np.sqrt(2.0 / (fi + fo))
+        b = 0.1 * rng.standard_normal(fo)
+        layers.append({"W": w.astype(np.float32), "b": b.astype(np.float32)})
+    return layers
+
+
+def plate_points(rng, n):
+    """(n, 2) f32 points of the quarter plate outside the hole."""
+    from pinn_elastodynamics_torch.cases.plate_hole import HOLE_R
+
+    pts = np.empty((0, 2), np.float32)
+    while pts.shape[0] < n:
+        cand = rng.uniform(0.0, 0.5, (2 * n, 2)).astype(np.float32)
+        cand = cand[np.hypot(cand[:, 0], cand[:, 1]) > HOLE_R]
+        pts = np.concatenate([pts, cand])
+    return pts[:n]
+
+
+def spacetime(rng, n, torch, device):
+    xy = plate_points(rng, n)
+    t = rng.uniform(0.0, 10.0, (n, 1)).astype(np.float32)
+    return torch.as_tensor(np.concatenate([xy, t], 1), device=device)
+
+
+def to64(tree):
+    if isinstance(tree, dict):
+        return {k: to64(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to64(v) for v in tree]
+    return tree.double()
+
+
+def jet_errors(ker, ref):
+    """Scaled and absolute errors of a kernel jet against a reference jet."""
+    scaled, worst = {}, 0.0
+    for name in ("f", "d", "dtt"):
+        r = getattr(ref, name)
+        if r is None:
+            continue
+        k = getattr(ker, name).double()
+        err = float((k - r).abs().max())
+        scaled[name] = err / max(1.0, float(r.abs().max()))
+        worst = max(worst, err)
+    return scaled, worst
+
+
+def check_jet(label, ker, ref):
+    scaled, worst = jet_errors(ker, ref)
+    log(f"  {label}: " + ", ".join(f"{k} {v:.3e}" for k, v in scaled.items())
+        + f" (max abs {worst:.3e})")
+    for name, err in scaled.items():
+        limit = TOL_DTT if name == "dtt" else TOL_FD
+        if not err <= limit:
+            raise AssertionError(f"{label}: {name} error {err:.3e} > {limit:.0e}")
+    return worst
+
+
+def flops_per_point(dims, n_streams):
+    return 2 * n_streams * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def time_cuda(torch, fn, warmup=3, runs=20):
+    """Median milliseconds of ``fn`` by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_breakdown(torch, fn, top=4):
+    """Profile one call of ``fn``: wall seconds, device-busy seconds and the
+    kernels with the most device time (torch.profiler, CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        rows.append((us * 1e-6, evt.count, evt.key))
+    rows.sort(reverse=True)
+    return wall, sum(r[0] for r in rows), rows[:top]
+
+
+def eager_copy(model):
+    """The same model with every jet on the plain (eager) path."""
+    if hasattr(model, "uv_model"):  # closed-form composite
+        return dataclasses.replace(
+            model, uv_model=dataclasses.replace(model.uv_model, jet_impl="eager"))
+    return dataclasses.replace(model, jet_impl="eager")
+
+
+def http(method, url, payload=None):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+
+    from pinn_elastodynamics_torch.cases import plate_hole
+    from pinn_elastodynamics_torch.eval.render import predict_fields
+    from pinn_elastodynamics_torch.kernels import _native
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.models.fourier import FourierMLPFieldModel
+    from pinn_elastodynamics_torch.models.fields import FieldSpec, SECOND_ORDER
+    from pinn_elastodynamics_torch.serving import FieldEvaluator, FieldServer
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    t_all = time.perf_counter()
+
+    # 1. Card.
+    t0 = time.perf_counter()
+    log(card_line(torch))
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+    log(f"phase card: {time.perf_counter() - t0:.2f} s")
+
+    # 2. Build.
+    t0 = time.perf_counter()
+    _native.library()
+    log(f"phase build: {time.perf_counter() - t0:.2f} s "
+        f"({_native.library_path().name})")
+
+    # Full-width parameters (JAX layout, numpy) for both plate models.
+    uv_dims = [3] + [70] * 8 + [5]
+    small_dims = [3] + [20] * 4 + [5]
+    four_dims = [2 * FOURIER] + [70] * 8 + [5]
+    net_tree = {"uv": mlp_tree(rng, uv_dims), "dist": mlp_tree(rng, small_dims),
+                "part": mlp_tree(rng, small_dims)}
+    b_mat = (FOURIER_SCALE * rng.standard_normal((3, FOURIER))).astype(np.float32)
+    ana_tree = {"uv": {"B": b_mat, "mlp": mlp_tree(rng, four_dims)}}
+    net_p = params_from_jax(net_tree, device=dev)
+    ana_p = params_from_jax(ana_tree, device=dev)
+    raw_p = params_from_jax(mlp_tree(rng, uv_dims), device=dev)
+    net_p64, ana_p64, raw_p64 = to64(net_p), to64(ana_p), to64(raw_p)
+    spec = FieldSpec(ndim=2, formulation=SECOND_ORDER)
+    fourier = FourierMLPFieldModel(
+        spec=spec, hidden=(70,) * 8, n_features=FOURIER,
+        feature_scale=FOURIER_SCALE, normalize=True, lb=plate_hole.LB,
+        ub=plate_hole.UB)
+
+    # 3. Kernels against their plain versions (float64 on the card).
+    t0 = time.perf_counter()
+    max_err = {"fused_mlp_jet": 0.0, "fused_composite_jet": 0.0}
+    with torch.no_grad():
+        for n in (N_BIG, N_RAGGED):
+            x = spacetime(rng, n, torch, dev)
+            x64 = x.double()
+            for order in (1, 2):
+                h, d, dtt = fourier._embed_jet(ana_p["uv"], x, order)
+                h64, d64, dtt64 = fourier._embed_jet(ana_p64["uv"], x64, order)
+                ker = fj.fused_seed_jet(ana_p["uv"]["mlp"], h, d, dtt)
+                ref = fj.fused_seed_jet_reference(
+                    ana_p64["uv"]["mlp"], h.double(), d.double(),
+                    None if dtt is None else dtt.double())
+                err = check_jet(f"B1 seeded Fourier{FOURIER} n={n} order={order}",
+                                ker, ref)
+                max_err["fused_mlp_jet"] = max(max_err["fused_mlp_jet"], err)
+
+                kw = dict(order=order, lb=plate_hole.LB, ub=plate_hole.UB)
+                ker = fj.fused_jet(raw_p, x, **kw)
+                ref = fj.fused_jet_reference(raw_p64, x64, **kw)
+                err = check_jet(f"B1 raw lb/ub n={n} order={order}", ker, ref)
+                max_err["fused_mlp_jet"] = max(max_err["fused_mlp_jet"], err)
+
+                ker = fj.fused_composite_jet(net_p, x, order=order)
+                ref = fj.fused_composite_jet_reference(net_p64, x64, order=order)
+                err = check_jet(f"B4 composite n={n} order={order}", ker, ref)
+                max_err["fused_composite_jet"] = max(
+                    max_err["fused_composite_jet"], err)
+                del h64, d64, dtt64
+    torch.cuda.synchronize()
+    log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
+
+    # 4. Serving: both plate models behind FieldServer.
+    t0 = time.perf_counter()
+    models = {
+        "plate_net_bc": (plate_hole.build_model(), net_p, net_p64,
+                         "fused_composite_jet"),
+        "plate_analytic_fourier64": (
+            plate_hole.build_model(bc="analytic", fourier=FOURIER,
+                                   fourier_scale=FOURIER_SCALE),
+            ana_p, ana_p64, "fused_mlp_jet"),
+    }
+    requests = {size: plate_points(rng, size) for size in REQUEST_SIZES}
+    evaluators, servers, answers, grown = {}, {}, {}, {}
+    try:
+        for name, (model, params, _, _) in models.items():
+            ev = FieldEvaluator(model, params, name=name, device="cuda").warmup()
+            evaluators[name] = ev
+            servers[name] = FieldServer(ev).start()
+        fj.reset_launches()
+        for name, server in servers.items():
+            before = dict(fj.LAUNCHES)
+            host, port = server.address
+            base = f"http://{host}:{port}"
+            code, body = http("GET", base + "/healthz")
+            assert code == 200 and body["status"] == "ok", body
+            code, meta = http("GET", base + "/meta")
+            assert code == 200 and meta["name"] == name, meta
+            assert meta["channels"] == list(spec.channels), meta
+            for size, xy in requests.items():
+                code, body = http("POST", base + "/predict",
+                                  {"points": xy.tolist(), "t": T_SERVE})
+                assert code == 200 and body["n"] == size, (code, body.get("n"))
+                answers[name, size] = body["fields"]
+            grown[name] = {k: fj.LAUNCHES[k] - before[k] for k in fj.LAUNCHES}
+        launches = dict(fj.LAUNCHES)
+    finally:
+        for server in servers.values():
+            server.stop()
+    log(f"  launches while serving: {launches} (per model {grown})")
+    for name, (_, _, _, kernel) in models.items():
+        if grown[name][kernel] < 1:
+            raise AssertionError(f"{name} did not launch {kernel}")
+    for kernel, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{kernel} was not launched while serving")
+
+    for name, (model, _, params64, _) in models.items():
+        eager = eager_copy(model)
+        for size, xy in requests.items():
+            direct = evaluators[name].evaluate(xy, T_SERVE)
+            got = answers[name, size]
+            plain = predict_fields(eager, params64, xy.astype(np.float64),
+                                   T_SERVE, dtype=np.float64, device="cuda")
+            worst_http = worst_plain = 0.0
+            for field, ref in direct.items():
+                resp = np.asarray(got[field], np.float64)
+                scale = max(1.0, float(np.abs(ref).max()))
+                worst_http = max(worst_http,
+                                 float(np.abs(resp - ref).max()) / scale)
+                pscale = max(1.0, float(np.abs(plain[field]).max()))
+                worst_plain = max(worst_plain, float(
+                    np.abs(ref.astype(np.float64) - plain[field]).max()) / pscale)
+            log(f"  {name} n={size}: http vs direct {worst_http:.3e}, "
+                f"direct vs plain f64 {worst_plain:.3e}")
+            if not worst_http <= 1e-6:
+                raise AssertionError(f"{name} n={size}: answer differs from "
+                                     f"direct evaluation by {worst_http:.3e}")
+            if not worst_plain <= TOL_FD:
+                raise AssertionError(f"{name} n={size}: direct evaluation "
+                                     f"differs from plain f64 by {worst_plain:.3e}")
+    log(f"phase serving: {time.perf_counter() - t0:.2f} s")
+
+    # 5. Timings at N = 65,536, order 1.
+    t0 = time.perf_counter()
+    x = spacetime(rng, N_BIG, torch, dev)
+    with torch.no_grad():
+        h, d, _ = fourier._embed_jet(ana_p["uv"], x, 1)
+        mlp = ana_p["uv"]["mlp"]
+        timed = {
+            "fused_mlp_jet": (
+                lambda: fj.fused_seed_jet(mlp, h, d),
+                lambda: fj.fused_seed_jet_reference(mlp, h, d),
+                flops_per_point(four_dims, 4) * N_BIG,
+                (h.numel() + d.numel() + 4 * N_BIG * 5) * 4
+                + sum(t.numel() * 4 for layer in mlp for t in layer.values()),
+                "pinn_elastodynamics_tpu/kernels/fused_jet.py:116",
+            ),
+            "fused_composite_jet": (
+                lambda: fj.fused_composite_jet(net_p, x, order=1),
+                lambda: fj.fused_composite_jet_reference(net_p, x, order=1),
+                sum(flops_per_point(dims, 4)
+                    for dims in (uv_dims, small_dims, small_dims)) * N_BIG,
+                (x.numel() + 4 * N_BIG * 5) * 4 + sum(
+                    t.numel() * 4 for net in net_p.values() for layer in net
+                    for t in layer.values()),
+                "pinn_elastodynamics_tpu/kernels/fused_jet.py:125",
+            ),
+        }
+        kernels = []
+        for name, (kern, plain, flops, nbytes, replaces) in timed.items():
+            ms = time_cuda(torch, kern)
+            plain_ms = time_cuda(torch, plain)
+            op_ms = flops / F32_PEAK_FLOPS * 1e3
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} GFLOP/s")
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "pinn_elastodynamics_torch/kernels/csrc/fused_jet.cu",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(op_ms, byte_ms),
+                "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                "library_ms": None,
+            })
+    xy = plate_points(rng, 4 * N_BIG)
+    for name, ev in evaluators.items():
+        model, params = ev.model, ev.params
+        predict_fields(model, params, xy, T_SERVE, device="cuda")
+        runs = []
+        for _ in range(5):
+            s = time.perf_counter()
+            predict_fields(model, params, xy, T_SERVE, device="cuda")
+            runs.append(time.perf_counter() - s)
+        sec = float(np.median(runs))
+        log(f"  predict_fields {name}: {xy.shape[0]} points in {sec:.4f} s, "
+            f"{xy.shape[0] / sec:.0f} points/s (chunk 65536, median of 5)")
+        wall, busy, rows = device_breakdown(
+            torch, lambda: predict_fields(model, params, xy, T_SERVE,
+                                          device="cuda"))
+        log(f"  profiled {name}: wall {wall:.4f} s, device busy {busy:.4f} s "
+            f"({100 * busy / wall:.1f}%)")
+        for sec_k, count, key in rows:
+            log(f"    {sec_k:.5f} s  x{count}  {key[:90]}")
+    log(f"phase timings: {time.perf_counter() - t0:.2f} s")
+    log(f"total: {time.perf_counter() - t_all:.2f} s")
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+"""Checkpoint reading and parameter conversion (PyTorch).
+
+Counterpart of the read side of ``pinn_elastodynamics_tpu/train/
+checkpoint.py``:
+
+* **native** checkpoints are one pickle of a numpy tree (parameters under
+  ``"params"``, plus optimizer state and counters); :func:`load_checkpoint`
+  returns that tree as numpy;
+* **reference** pickles hold ``[weights_list, biases_list]`` with biases
+  shaped (1, out); :func:`load_reference_pickle` returns MLP parameters.
+
+:func:`params_from_jax` turns a JAX parameter tree held as numpy arrays
+(nested dicts and lists of ``{"W", "b"}``, ``{"B", "mlp"}`` for Fourier
+nets) into the port's tensors on a device.  Unpickling runs code from the
+file, so load only checkpoints this project wrote.
+"""
+
+from __future__ import annotations
+
+import pickle
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.mlp import Params
+
+
+def load_checkpoint(path: str, dtype=None):
+    """Unpickle a native checkpoint as a numpy tree.
+
+    Float leaves are cast to ``dtype`` when given; integer and bool leaves
+    (step counters, flags) keep theirs.
+    """
+    with open(path, "rb") as f:
+        host = pickle.load(f)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        if isinstance(x, np.ndarray) and x.dtype.kind == "f" and dtype is not None:
+            return x.astype(dtype)
+        return x
+
+    return conv(host)
+
+
+def params_from_jax(tree, *, device="cuda", dtype=torch.float32):
+    """Numpy parameter tree (JAX layout) → the same tree of tensors."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        arr = np.asarray(x)
+        if arr.dtype.kind != "f":
+            raise TypeError(f"parameter leaf of dtype {arr.dtype} is not float")
+        return torch.tensor(arr, dtype=dtype, device=dev)
+
+    return conv(tree)
+
+
+def load_reference_pickle(path: str, *, device="cuda",
+                          dtype=torch.float32) -> Params:
+    """Load a reference ``[weights, biases]`` pickle as MLP parameters."""
+    with open(path, "rb") as f:
+        weights, biases = pickle.load(f)
+    if len(weights) != len(biases):
+        raise ValueError(
+            f"malformed reference pickle: {len(weights)} weights vs "
+            f"{len(biases)} biases"
+        )
+    layers = []
+    for w, b in zip(weights, biases):
+        w = np.asarray(w)
+        b = np.asarray(b).reshape(-1)
+        if w.shape[1] != b.shape[0]:
+            raise ValueError(f"layer shape mismatch: W {w.shape} vs b {b.shape}")
+        layers.append({"W": w, "b": b})
+    return params_from_jax(layers, device=device, dtype=dtype)
