@@ -4,19 +4,34 @@
     python3 chip_smoke.py
 
 Builds the fused-jet CUDA kernels from ``pinn_elastodynamics_torch/kernels/
-csrc/fused_jet.cu`` (one ``nvcc`` call, first use only), then, in order:
+csrc/`` (one ``nvcc`` call per source, started together, first use only),
+then, in order:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
-2. builds or loads the kernel library and prints the build seconds;
-3. holds each kernel to its plain PyTorch version run in float64 on the card
-   (B1 seeded at the Fourier64 plate widths, B1 raw-coordinate with lb/ub,
-   B4 at the net-BC plate widths; order 1 and 2; N = 65,536 and 1,000);
+2. builds or loads the kernel libraries and prints the build seconds;
+3. holds each forward kernel to its plain PyTorch version run in float64 on
+   the card (B1 seeded at the Fourier64 plate widths, B1 raw-coordinate with
+   lb/ub, B4 at the net-BC plate widths; order 1 and 2; N = 65,536 and
+   1,000);
 4. serves both quarter-plate models at full width (random weights from a
    numpy seed, through ``params_from_jax``) behind ``FieldServer`` and checks
    every answer against a direct evaluation, the direct evaluation against
    the plain float64 forward, and the launch counts of the kernels;
-5. times each kernel and its plain version with CUDA events, and
+5. times each forward kernel and its plain version with CUDA events, and
    ``predict_fields`` of both models;
+6. holds each backward kernel (B2 raw and with lb/ub, B3b seeded at the
+   Fourier64 widths, B5 at the net-BC widths) to its plain float64 version
+   on the card, with random cotangents, at N = 65,536 and 1,000, order 1 and
+   2, and requires two runs to give bitwise-equal results;
+7. trains the three plate configurations at ``scale=1.0`` (net-BC,
+   analytic-BC + Fourier64 with ``trainable="uv.mlp"``, analytic-BC with a
+   plain uv MLP): value+grad of the main phase loss on the kernel path
+   against the eager float64 path on the card, exactly one forward and one
+   backward kernel launch per value+grad, the dist and part losses once,
+   and 20 Adam steps whose loss must fall;
+8. times each backward kernel at N = 103,711, order 2, beside its bound and
+   its plain version, value+grad per configuration on the kernel path and
+   the eager f32 path, and profiles one value+grad per configuration;
 
 and prints one JSON line describing the kernels, then, only if every phase
 passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -46,6 +61,11 @@ F32_PEAK_FLOPS = 67e12   # H100 SXM, f32 on the CUDA cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 FOURIER = 64
 FOURIER_SCALE = 2.0
+TOL_GRAD = 2e-4   # max|err| / max(1, max|ref|): tests/test_fused_vjp.py
+TOL_LOSS = 1e-5   # relative, kernel path f32 against eager f64
+ADAM_STEPS = 20
+ADAM_LR = 1e-3
+N_TRAIN = 103_711  # collocation points of plate_hole.build(scale=1.0)
 
 
 def log(msg: str) -> None:
@@ -165,6 +185,284 @@ def device_breakdown(torch, fn, top=4):
         rows.append((us * 1e-6, evt.count, evt.key))
     rows.sort(reverse=True)
     return wall, sum(r[0] for r in rows), rows[:top]
+
+
+def bwd_flops_per_point(dims, n_streams):
+    """FLOPs per point of the backward kernel of one MLP, from its code:
+    remat of the hidden layers (2S), the non-value pre-activations (2(S-1)),
+    the weight gradient and the input cotangent (2S each) per hidden layer;
+    the weight gradient and input cotangent of the head."""
+    s = n_streams
+    widths = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    return (8 * s - 2) * sum(widths[:-1]) + 4 * s * widths[-1]
+
+
+def max_scaled(got, ref):
+    """max|got - ref| / max(1, max|ref|) and max|got - ref|."""
+    err = float((got.double() - ref).abs().max())
+    return err / max(1.0, float(ref.abs().max())), err
+
+
+def bitwise_equal(a, b):
+    """Two trees (or tensors) of results are bitwise equal."""
+    import torch
+
+    from pinn_elastodynamics_torch.utils.tree import tree_leaves
+
+    return all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def check_grads(label, got, ref, limit=TOL_GRAD):
+    """Every leaf of a gradient tree against its float64 reference."""
+    from pinn_elastodynamics_torch.utils.tree import tree_leaves
+
+    worst_scaled = worst_abs = 0.0
+    for g, r in zip(tree_leaves(got), tree_leaves(ref)):
+        scaled, err = max_scaled(g, r)
+        worst_scaled, worst_abs = max(worst_scaled, scaled), max(worst_abs, err)
+    if not worst_scaled <= limit:
+        raise AssertionError(f"{label}: gradient error {worst_scaled:.3e} > "
+                             f"{limit:.0e}")
+    return worst_scaled, worst_abs
+
+
+def backward_checks(torch, dev, rng, trees, fourier):
+    """Phase 6: each backward kernel against its plain float64 version,
+    twice for bitwise determinism.  Returns the largest absolute error per
+    kernel."""
+    from pinn_elastodynamics_torch.cases import plate_hole
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.models.mlp import seed_jet
+
+    net_p, ana_p, raw_p = trees
+    net_p64, ana_p64, raw_p64 = to64(net_p), to64(ana_p), to64(raw_p)
+    max_err = dict.fromkeys(fv.LAUNCHES, 0.0)
+
+    def run(name, label, kernel, plain):
+        first, second = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not bitwise_equal(first, second):
+            raise AssertionError(f"{label}: two runs differ")
+        (grads, dx), (ref_grads, ref_dx) = first, plain()
+        g_scaled, g_abs = check_grads(label, grads, ref_grads)
+        x_scaled, x_abs = max_scaled(dx, ref_dx)
+        log(f"  {label}: grads {g_scaled:.3e}, dx {x_scaled:.3e} "
+            f"(max abs {max(g_abs, x_abs):.3e}), two runs bitwise equal")
+        if not x_scaled <= TOL_GRAD:
+            raise AssertionError(f"{label}: dx error {x_scaled:.3e}")
+        max_err[name] = max(max_err[name], g_abs, x_abs)
+
+    for n in (N_BIG, N_RAGGED):
+        x = spacetime(rng, n, torch, dev)
+        x64 = x.double()
+        for order in (1, 2):
+            s = 3 + order
+            cot = torch.as_tensor(rng.standard_normal((s, n, 5)),
+                                  dtype=torch.float32, device=dev)
+            cot64 = cot.double()
+            for lb, ub in ((None, None), (plate_hole.LB, plate_hole.UB)):
+                h0, d, dtt = (t if t is None else t.contiguous()
+                              for t in seed_jet(x, order=order, lb=lb, ub=ub))
+                seed64 = [None if t is None else t.double()
+                          for t in (h0, d, dtt)]
+                run("fused_mlp_jet_bwd",
+                    f"B2 {'lb/ub' if lb else 'raw'} n={n} order={order}",
+                    lambda: fv.fused_mlp_jet_bwd(raw_p, h0, d, dtt, cot,
+                                                 full_dx=False),
+                    lambda: (lambda g, ds: (g, ds[0]))(
+                        *fv.mlp_jet_bwd_reference(raw_p64, *seed64, cot64)))
+            h0, d, dtt = fourier._embed_jet(ana_p["uv"], x, order)
+            seed64 = [None if t is None else t.double() for t in (h0, d, dtt)]
+            run("fused_seed_jet_bwd",
+                f"B3b seeded Fourier{FOURIER} n={n} order={order}",
+                lambda: fv.fused_mlp_jet_bwd(ana_p["uv"]["mlp"], h0, d, dtt,
+                                             cot, full_dx=True),
+                lambda: fv.mlp_jet_bwd_reference(ana_p64["uv"]["mlp"],
+                                                 *seed64, cot64))
+            run("fused_composite_jet_bwd", f"B5 composite n={n} order={order}",
+                lambda: fv.fused_composite_jet_bwd(net_p, x, cot, order=order),
+                lambda: fv.composite_jet_bwd_reference(net_p64, x64, cot64,
+                                                       order=order))
+    return max_err
+
+
+# name -> (build kwargs, trainable path of the main phase, tree key,
+#          forward kernel, backward kernel)
+TRAIN_CONFIGS = {
+    "net_bc": ({}, "uv", 0, "fused_composite_jet", "fused_composite_jet_bwd"),
+    "analytic_fourier64": (
+        dict(bc="analytic", fourier=FOURIER, fourier_scale=FOURIER_SCALE),
+        "uv.mlp", 1, "fused_mlp_jet", "fused_seed_jet_bwd"),
+    "analytic_plain": (dict(bc="analytic"), "uv", 2, "fused_mlp_jet",
+                       "fused_mlp_jet_bwd"),
+}
+
+
+def training_checks(torch, dev, trees):
+    """Phase 7: value+grad of each configuration's main phase on the kernel
+    path against eager float64, launch counts, dist/part losses, Adam.
+    Returns per configuration (case, phase loss, subtree, launches)."""
+    from pinn_elastodynamics_torch.banks import PointBank
+    from pinn_elastodynamics_torch.cases import plate_hole
+    from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.train.adam import Adam
+    from pinn_elastodynamics_torch.train.step import (
+        make_grad_step,
+        value_and_grad,
+    )
+
+    out = {}
+    for name, (kw, trainable, key, fwd, bwd) in TRAIN_CONFIGS.items():
+        t0 = time.perf_counter()
+        case = plate_hole.build(scale=1.0, device=dev, **kw)
+        assert case.banks["collocation"].n_total == N_TRAIN
+        params = trees[key]
+        phase = dataclasses.replace(case.phases[-1], trainable=trainable)
+        fn, sub, _ = _phase_loss_fn(case, phase, params)
+        value_and_grad(fn, sub)   # warm-up
+        torch.cuda.synchronize()
+        fj.reset_launches()
+        fv.reset_launches()
+        loss, grads = value_and_grad(fn, sub)
+        torch.cuda.synchronize()
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        want = {k: 0 for k in launches}
+        want[fwd] = want[bwd] = 1
+        log(f"  {name}: launches per value+grad {launches}")
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches} != {want}")
+
+        banks64 = {k: PointBank(b.xyt.double(), b.mask.double(),
+                                {v: t.double() for v, t in b.values.items()})
+                   for k, b in case.banks.items()}
+        case64 = dataclasses.replace(case, model=eager_copy(case.model),
+                                     banks=banks64)
+        fn64, sub64, _ = _phase_loss_fn(case64, phase, to64(params))
+        loss64, grads64 = value_and_grad(fn64, sub64)
+        rel = abs(float(loss) - float(loss64)) / abs(float(loss64))
+        g_scaled, g_abs = check_grads(f"{name} value+grad", grads, grads64)
+        log(f"  {name}: loss {float(loss):.9g} (f64 {float(loss64):.9g}, "
+            f"rel {rel:.2e}), gradients {g_scaled:.3e} (max abs {g_abs:.3e})")
+        if not rel <= TOL_LOSS:
+            raise AssertionError(f"{name}: loss differs by {rel:.2e}")
+        del case64, banks64, grads64
+
+        for pre in case.phases[:-1]:   # dist, part: eager jets, as in JAX
+            pfn, psub, _ = _phase_loss_fn(case, pre, params)
+            ploss, pgrads = value_and_grad(pfn, psub)
+            if not bool(torch.isfinite(ploss)):
+                raise AssertionError(f"{name}: {pre.name} loss {ploss}")
+            log(f"  {name}: {pre.name} phase loss {float(ploss):.6g}")
+
+        opt = Adam(ADAM_LR)
+        step = make_grad_step(case.model, case.loss, case.material, opt)
+        p, state, losses = params, opt.init(params), []
+        t1 = time.perf_counter()
+        for _ in range(ADAM_STEPS):
+            p, state, l, _ = step(p, state, case.banks)
+            losses.append(float(l))
+        adam_s = time.perf_counter() - t1
+        log(f"  {name}: {ADAM_STEPS} Adam steps, loss {losses[0]:.6g} -> "
+            f"{losses[-1]:.6g}, {1e3 * adam_s / ADAM_STEPS:.2f} ms/step")
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: Adam losses {losses}")
+        out[name] = dict(case=case, fn=fn, sub=sub, phase=phase,
+                         params=params, launches=launches)
+        log(f"  {name}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
+                     launches):
+    """Phase 8: each backward kernel and its plain f32 version by CUDA
+    events on the collocation bank (N = 103,711, order 2), beside its
+    bound; value+grad per configuration, kernel path and eager f32; one
+    profiled value+grad per configuration."""
+    from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.models.mlp import seed_jet
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    net_p, ana_p, raw_p = trees
+    x = trained["net_bc"]["case"].banks["collocation"].xyt
+    n = x.shape[0]
+    cot = torch.as_tensor(rng.standard_normal((5, n, 5)), dtype=torch.float32,
+                          device=dev)
+    h0, d, dtt = (t.contiguous() for t in seed_jet(x, order=2))
+    fh, fd, ftt = fourier._embed_jet(ana_p["uv"], x, 2)
+    uv_dims = [3] + [70] * 8 + [5]
+    small_dims = [3] + [20] * 4 + [5]
+    four_dims = [2 * FOURIER] + [70] * 8 + [5]
+
+    def n_params(tree):
+        from pinn_elastodynamics_torch.utils.tree import tree_leaves
+
+        return sum(t.numel() for t in tree_leaves(tree))
+
+    # Bytes: every input read once, every output written once (f32).
+    timed = {
+        "fused_mlp_jet_bwd": (
+            lambda: fv.fused_mlp_jet_bwd(raw_p, h0, d, dtt, cot,
+                                         full_dx=False),
+            lambda: fv.mlp_jet_bwd_reference(raw_p, h0, d, dtt, cot),
+            bwd_flops_per_point(uv_dims, 5) * n,
+            4 * (5 * n * 3 + cot.numel() + 2 * n_params(raw_p) + n * 3),
+            "pinn_elastodynamics_tpu/kernels/fused_jet_vjp.py:178"),
+        "fused_seed_jet_bwd": (
+            lambda: fv.fused_mlp_jet_bwd(ana_p["uv"]["mlp"], fh, fd, ftt, cot,
+                                         full_dx=True),
+            lambda: fv.mlp_jet_bwd_reference(ana_p["uv"]["mlp"], fh, fd, ftt,
+                                             cot),
+            bwd_flops_per_point(four_dims, 5) * n,
+            4 * (2 * 5 * n * 2 * FOURIER + cot.numel()
+                 + 2 * n_params(ana_p["uv"]["mlp"])),
+            "pinn_elastodynamics_tpu/kernels/fused_jet_vjp.py:342"),
+        "fused_composite_jet_bwd": (
+            lambda: fv.fused_composite_jet_bwd(net_p, x, cot, order=2),
+            lambda: fv.composite_jet_bwd_reference(net_p, x, cot, order=2),
+            (bwd_flops_per_point(uv_dims, 5)
+             + 2 * bwd_flops_per_point(small_dims, 5)
+             + 2 * 5 * (70 * 5 + 20 * 5)) * n,   # + the uv and dist heads
+            4 * (2 * x.numel() + cot.numel() + 2 * n_params(net_p)),
+            "pinn_elastodynamics_tpu/kernels/fused_jet_vjp.py:575"),
+    }
+    kernels = []
+    for name, (kern, plain, flops, nbytes, replaces) in timed.items():
+        ms = time_cuda(torch, kern, runs=10)
+        plain_ms = time_cuda(torch, plain, runs=10)
+        op_ms = flops / F32_PEAK_FLOPS * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} GFLOP/s")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pinn_elastodynamics_torch/kernels/csrc/fused_jet_vjp.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": bwd_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "library_ms": None,
+        })
+
+    for name, t in trained.items():
+        case, fn, sub = t["case"], t["fn"], t["sub"]
+        eager_case = dataclasses.replace(case, model=eager_copy(case.model))
+        efn, esub, _ = _phase_loss_fn(eager_case, t["phase"], t["params"])
+        ms = time_cuda(torch, lambda: value_and_grad(fn, sub), runs=5)
+        eager_ms = time_cuda(torch, lambda: value_and_grad(efn, esub), runs=5)
+        log(f"  value+grad {name}: kernel path {ms:.3f} ms, eager f32 "
+            f"{eager_ms:.3f} ms (CUDA events, median of 5)")
+        wall, busy, rows = device_breakdown(
+            torch, lambda: value_and_grad(fn, sub), top=6)
+        log(f"  profiled value+grad {name}: wall {wall:.4f} s, device busy "
+            f"{busy:.4f} s ({100 * busy / wall:.1f}%)")
+        for sec_k, count, key in rows:
+            log(f"    {sec_k:.5f} s  x{count}  {key[:90]}")
+    return kernels
 
 
 def eager_copy(model):
@@ -404,6 +702,29 @@ def main() -> int:
         for sec_k, count, key in rows:
             log(f"    {sec_k:.5f} s  x{count}  {key[:90]}")
     log(f"phase timings: {time.perf_counter() - t0:.2f} s")
+
+    # 6. Backward kernels against their plain versions (float64 on the card).
+    t0 = time.perf_counter()
+    bwd_err = backward_checks(torch, dev, rng, (net_p, ana_p, raw_p), fourier)
+    torch.cuda.synchronize()
+    log(f"phase backward kernels: {time.perf_counter() - t0:.2f} s")
+
+    # 7. Training at full width and full bank scale.
+    t0 = time.perf_counter()
+    trees = (net_p, ana_p, {"uv": raw_p})
+    trained = training_checks(torch, dev, trees)
+    train_launches = {k: sum(t["launches"][k] for t in trained.values())
+                      for k in next(iter(trained.values()))["launches"]}
+    log(f"  launches over the three value+grads: {train_launches}")
+    for k in kernels:   # forward kernels: serving and training
+        k["launches"] += train_launches[k["name"]]
+    log(f"phase training: {time.perf_counter() - t0:.2f} s")
+
+    # 8. Backward timings, value+grad timings and profiles.
+    t0 = time.perf_counter()
+    kernels += backward_timings(torch, dev, rng, (net_p, ana_p, raw_p),
+                                fourier, trained, bwd_err, train_launches)
+    log(f"phase training timings: {time.perf_counter() - t0:.2f} s")
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,16 @@
 """PyTorch/CUDA port of the PINN elastodynamics framework.
 
 A second package beside ``pinn_elastodynamics_tpu`` (the JAX reference),
-written for one NVIDIA H100.  This slice serves the quarter-plate field
-models: jet algebra, the tanh-MLP jet, the field models (net-BC composite,
-Fourier features, closed-form hard BCs), checkpoint reading, rendering and
-the HTTP field server.  The fused jet forwards run as hand-written CUDA
-kernels (kernels/csrc/fused_jet.cu), built with ``nvcc`` at first use; this
-module does not load them.  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+written for one NVIDIA H100.  It covers the quarter-plate case end to end
+up to Adam training, and serving: jet algebra, the tanh-MLP jet, the field
+models (net-BC composite, Fourier features, closed-form hard BCs),
+residuals and traction, point banks, declarative losses, the case and its
+phases, value+grad, Adam, checkpoints, rendering and the HTTP field server.
+The fused jets and their backward run as hand-written CUDA kernels
+(kernels/csrc/), built with ``nvcc`` at first use and reached through
+autograd Functions (kernels/fused_jet_vjp.py); this module does not load
+them.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from .device import resolve_device

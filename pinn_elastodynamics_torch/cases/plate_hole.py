@@ -1,18 +1,33 @@
 """Quarter plate with a circular hole under cyclic tension — the flagship case.
 
-Counterpart of the model side of ``pinn_elastodynamics_tpu/cases/
-plate_hole.py``: the geometry constants, the closed-form distance and
-particular factors, and ``build_model``.  Plane stress, second-order
-(5-output) formulation; geometry [0, 0.5]² minus an r=0.1 quarter-hole at
-the origin, T = 10.
+Counterpart of ``pinn_elastodynamics_tpu/cases/plate_hole.py`` (the
+reference's PlateHoleQuarter/train/train.py:871-974): plane stress,
+second-order (5-output) formulation, hard BCs via the composite u = P + D·ũ
+with dist/part pretraining phases, cyclic traction s11(t) = 0.5·sin(2πt/5 +
+3π/2) + 0.5 on the right edge, traction-free hole.  Geometry [0, 0.5]² minus
+an r=0.1 quarter-hole at the origin, T = 10; E=20, μ=0.25, ρ=1.  The FEM
+comparison data of the JAX case is not part of the port yet.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict
 
+import numpy as np
 import torch
 
+from ..banks import PointBank, make_bank
+from ..geometry import distance as dist_mod
+from ..geometry import sampling as smp
+from ..geometry.sources import cyclic_tension
+from ..losses.terms import (
+    FieldTarget,
+    LossSpec,
+    PDEResidual,
+    Regression,
+    Traction,
+)
 from ..models.analytic_bc import AnalyticCompositeFieldModel
 from ..models.fields import (
     CompositeFieldModel,
@@ -21,10 +36,13 @@ from ..models.fields import (
     SECOND_ORDER,
 )
 from ..models.fourier import FourierMLPFieldModel
+from ..ops.elasticity import PLANE_STRESS, Material
+from .base import Case, Phase
 
 HOLE_R = 0.1
 LB = (0.0, 0.0, 0.0)
 UB = (0.5, 0.5, 10.0)
+MAX_T = 10.0
 
 
 def analytic_dist(p):
@@ -94,4 +112,172 @@ def build_model(jet_impl: str = "auto", fourier: int = 0,
         normalize=bool(fourier),
         lb=LB if fourier else None,
         ub=UB if fourier else None,
+    )
+
+
+def build_banks(*, seed: int = 1111, scale: float = 1.0, dtype=torch.float32,
+                pad_to_multiple_of: int = 1,
+                device="cuda") -> Dict[str, PointBank]:
+    """Sample all point banks (train.py:893-929) on ``device``.  ``scale``
+    < 1 shrinks every count proportionally for fast tests.  The numpy draws
+    are the JAX package's, so the banks are equal to its banks."""
+    rng = np.random.default_rng(seed)
+    s = lambda n: max(8, int(round(n * scale)))
+
+    # Distance-regression grid + analytic targets.
+    n_grid = max(5, int(round(21 * np.sqrt(scale))))
+    dist_pts = smp.dist_grid_with_surface(
+        xmin=0, xmax=0.5, ymin=0, ymax=0.5, tmin=0, tmax=MAX_T,
+        xc=0, yc=0, r=HOLE_R,
+        num_surf_pt=s(40), num=n_grid, num_t=n_grid, arc="quarter",
+    )
+    dist_targets = dist_mod.plate_hole_distance(dist_pts)
+
+    # IC points, t=0.
+    ic = smp.lhs_box(LB, (0.5, 0.5, 0.0), s(5000), rng)
+    ic = smp.exclude_disk(ic, xc=0, yc=0, r=HOLE_R, strict=True)
+
+    # Collocation: bulk + stress-concentration refinement − hole.
+    col = smp.lhs_box(LB, UB, s(70000), rng)
+    col_ref = smp.lhs_box(LB, (0.15, 0.15, MAX_T), s(40000), rng)
+    col = np.concatenate([col, col_ref], axis=0)
+    col = smp.exclude_disk(col, xc=0, yc=0, r=HOLE_R, strict=True)
+
+    # Hole-surface traction points: quarter arc × time stations, skipping
+    # t=0.
+    arc = smp.circle_points(xc=0, yc=0, r=HOLE_R, n=s(83), theta1=np.pi / 2)
+    tt = np.linspace(0.0, MAX_T, s(121))[1:]
+    hole = smp.cross_time(arc, tt)
+    hole_normals = np.stack(
+        [-hole[:, 0] / HOLE_R, -hole[:, 1] / HOLE_R], axis=1
+    )
+
+    # Edge banks.
+    lw = smp.edge_lhs((0.1, 0.0, 0.0), (0.4, 0.0, MAX_T), s(8000), rng)
+    up = smp.edge_lhs((0.0, 0.5, 0.0), (0.5, 0.0, MAX_T), s(8000), rng)
+    lf = smp.edge_lhs((0.0, 0.1, 0.0), (0.0, 0.4, MAX_T), s(8000), rng)
+    rt = smp.edge_lhs((0.5, 0.0, 0.0), (0.0, 0.5, MAX_T), s(13000), rng)
+    s11_rt = cyclic_tension(rt[:, 2:3])
+
+    # Fold subsampled boundary points into the collocation set.
+    col = np.concatenate(
+        [col, hole[::4], lf[::5], rt[::5], up[::5], lw[::5]], axis=0
+    )
+
+    mk = lambda pts, vals=None: make_bank(
+        pts, vals, dtype=dtype, pad_to_multiple_of=pad_to_multiple_of,
+        device=device,
+    )
+    return {
+        "collocation": mk(col),
+        "hole": mk(hole, {"normals": hole_normals}),
+        "ic": mk(ic),
+        "lf": mk(lf),
+        "rt": mk(rt, {"s11": s11_rt}),
+        "up": mk(up),
+        "lw": mk(lw),
+        "dist": mk(dist_pts, {"targets": dist_targets}),
+    }
+
+
+def main_loss() -> LossSpec:
+    """loss = 10·(loss_f_uv + loss_f_s + loss_HOLE) (train.py:186-217)."""
+    return LossSpec(
+        terms=(
+            ("collocation", PDEResidual(plane=PLANE_STRESS)),
+            ("hole", Traction(name="HOLE")),
+        ),
+        weights=(("f_uv", 10.0), ("f_s", 10.0), ("HOLE", 10.0)),
+    )
+
+
+def dist_loss() -> LossSpec:
+    """loss_DIST: regress the analytic distances and zero ∂D/∂t for u, v at
+    the IC (train.py:194-200); trained with a 1000x scale."""
+    return LossSpec(
+        terms=(
+            ("dist", Regression(name="DIST", net="dist")),
+            ("ic", FieldTarget(name="DIST", channels=("dt:u", "dt:v"),
+                               net="dist")),
+        ),
+        weights=(("DIST", 1.0),),
+    )
+
+
+def part_loss() -> LossSpec:
+    """loss_PART: the particular net alone satisfies every IC/BC
+    (train.py:201-215); trained with a 1000x scale."""
+    return LossSpec(
+        terms=(
+            ("ic", FieldTarget(
+                name="PART",
+                channels=("u", "v", "s11", "s22", "s12", "dt:u", "dt:v"),
+                net="part",
+            )),
+            ("lf", FieldTarget(name="PART", channels=("u", "s12"), net="part")),
+            ("rt", FieldTarget(
+                name="PART", channels=("s11",), target_key="s11", net="part"
+            )),
+            ("rt", FieldTarget(name="PART", channels=("s12",), net="part")),
+            ("lw", FieldTarget(name="PART", channels=("v", "s12"), net="part")),
+            ("up", FieldTarget(name="PART", channels=("s22", "s12"),
+                               net="part")),
+        ),
+        weights=(("PART", 1.0),),
+    )
+
+
+def eval_grid(num: int = 251) -> np.ndarray:
+    """The reference's 251×251 grid minus the hole (train.py:980-989)."""
+    return smp.grid_disk_complement(
+        0.0, 0.5, 0.0, 0.5, num, xc=0, yc=0, r=HOLE_R
+    )
+
+
+def build(
+    *,
+    seed: int = 1111,
+    scale: float = 1.0,
+    dtype=torch.float32,
+    pad_to_multiple_of: int = 1,
+    maxiter_dist: int = 20000,
+    maxiter_part: int = 20000,
+    maxiter_uv: int = 70000,
+    jet_impl: str = "auto",
+    fourier: int = 0,
+    fourier_scale: float = 1.0,
+    bc: str = "net",
+    device="cuda",
+) -> Case:
+    """The plate case with its banks on ``device`` (``"cuda"`` unless the
+    caller asks for the CPU)."""
+    ftol = 1e-5 * float(np.finfo(np.float64).eps)  # train.py:227
+    if bc == "analytic":
+        # Exact closed-form D/P: no pretraining phases exist.
+        phases = (
+            Phase("uv", main_loss(), trainable="uv", scale=1.0,
+                  maxiter=maxiter_uv, ftol=ftol),
+        )
+    else:
+        phases = (
+            Phase("dist", dist_loss(), trainable="dist", scale=1000.0,
+                  maxiter=maxiter_dist, ftol=ftol),
+            Phase("part", part_loss(), trainable="part", scale=1000.0,
+                  maxiter=maxiter_part, ftol=ftol),
+            Phase("uv", main_loss(), trainable="uv", scale=1.0,
+                  maxiter=maxiter_uv, ftol=ftol),
+        )
+    return Case(
+        name="plate_hole_quarter",
+        model=build_model(jet_impl, fourier, fourier_scale, bc),
+        material=Material(E=20.0, mu=0.25, rho=1.0),
+        plane=PLANE_STRESS,
+        loss=main_loss(),
+        banks=build_banks(seed=seed, scale=scale, dtype=dtype,
+                          pad_to_multiple_of=pad_to_multiple_of,
+                          device=device),
+        phases=phases,
+        lb=LB,
+        ub=UB,
+        device=device,
     )

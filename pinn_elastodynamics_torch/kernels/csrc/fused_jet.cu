@@ -43,30 +43,12 @@
 // 1 or 2, and nets of at most MAX_LAYERS layers; anything else, or a net too
 // wide for shared memory, returns cudaErrorInvalidValue.
 
-#include <cuda_runtime.h>
-
-#include <algorithm>
-#include <cstddef>
+#include "jet_common.cuh"
 
 namespace {
 
 constexpr int TILE = 32;        // points per block
 constexpr int PG = 4;           // points per thread item (one float4)
-constexpr int MAX_LAYERS = 16;
-constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
-
-struct Net {
-  int n_layers;
-  int dims[MAX_LAYERS + 1];
-  const float* w[MAX_LAYERS];  // (dims[l], dims[l + 1]), row-major
-  const float* b[MAX_LAYERS];  // (dims[l + 1],)
-};
-
-struct Norm {
-  int on;
-  float lb[4];
-  float ub[4];
-};
 
 // Layer recurrence of one net over the tile held in `x` (width dims[0]).
 // Hidden layers ping-pong between p0 and p1; the head writes `fin`
@@ -217,15 +199,9 @@ __global__ void composite_jet_kernel(const float* __restrict__ xg, int n,
     const int p = sp % TILE;
     const int s = sp / TILE;
     float v = 0.0f;
-    if (s == 0) {
-      if (p < nvalid) {
-        v = xg[static_cast<size_t>(n0 + p) * a + k];
-        if (norm.on)
-          v = 2.0f * (v - norm.lb[k]) / (norm.ub[k] - norm.lb[k]) - 1.0f;
-      }
-    } else if (s <= NT && s - 1 == k) {
-      v = norm.on ? 2.0f / (norm.ub[k] - norm.lb[k]) : 1.0f;
-    }
+    if (s > 0 || p < nvalid)
+      v = seed_value(norm, s, k, NT,
+                     s == 0 ? xg[static_cast<size_t>(n0 + p) * a + k] : 0.0f);
     x[k * rs + s * TILE + p] = v;
   }
 
@@ -256,34 +232,6 @@ __global__ void composite_jet_kernel(const float* __restrict__ xg, int n,
       out[(S - 1) * sstride + base] =
           q[r] + d[r] * uf + 2.0f * d[t] * u[t] + df * u[r];
     }
-  }
-}
-
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-bool make_net(const float* packed, const int* dims, int n_layers, Net* net) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS) return false;
-  net->n_layers = n_layers;
-  size_t off = 0;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (dims[l] < 1) return false;
-    net->dims[l] = dims[l];
-  }
-  for (int l = 0; l < n_layers; ++l) {
-    net->w[l] = packed + off;
-    off += static_cast<size_t>(dims[l]) * dims[l + 1];
-    net->b[l] = packed + off;
-    off += dims[l + 1];
-  }
-  return true;
-}
-
-// Widest hidden layer and largest weight matrix of a net.
-void net_sizes(const Net& net, int* hid, int* wmax, int* bmax) {
-  for (int l = 0; l < net.n_layers; ++l) {
-    if (l > 0) *hid = std::max(*hid, net.dims[l]);
-    *wmax = std::max(*wmax, net.dims[l] * net.dims[l + 1]);
-    *bmax = std::max(*bmax, net.dims[l + 1]);
   }
 }
 
@@ -383,12 +331,7 @@ int fused_composite_jet_launch(const float* x, int n, int a, int order,
   for (int i = 0; i < 3; ++i)
     if (nets[i].dims[0] != a || nets[i].dims[nets[i].n_layers] != c)
       return static_cast<int>(cudaErrorInvalidValue);
-  Norm norm;
-  norm.on = (lb != nullptr && ub != nullptr) ? 1 : 0;
-  for (int k = 0; k < 4; ++k) {
-    norm.lb[k] = (norm.on && k < a) ? lb[k] : 0.0f;
-    norm.ub[k] = (norm.on && k < a) ? ub[k] : 1.0f;
-  }
+  const Norm norm = make_norm(lb, ub, a);
   if (n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int key = a * 2 + (order == 2 ? 1 : 0);

@@ -124,12 +124,21 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _jet_from_streams(out: torch.Tensor, a: int, order: int) -> Jet:
+def stack_jet(jet: Jet) -> torch.Tensor:
+    """The (S, N, C) stream stack [f; d_0 .. d_{A-1}; dtt] of a jet."""
+    parts = [jet.f[None], jet.d]
+    if jet.dtt is not None:
+        parts.append(jet.dtt[None])
+    return torch.cat(parts)
+
+
+def jet_from_stack(out: torch.Tensor, a: int, order: int) -> Jet:
+    """A jet whose streams are views of the (S, N, C) stack ``out``."""
     return Jet(f=out[0], d=out[1 : 1 + a],
                dtt=out[1 + a] if order >= 2 else None)
 
 
-def _launch_mlp_jet(params: Params, h0, d, dtt) -> Jet:
+def _launch_mlp_jet(params: Params, h0, d, dtt) -> torch.Tensor:
     device = h0.device
     for name, t in (("h0", h0), ("d", d), ("dtt", dtt)):
         if t is not None:
@@ -152,7 +161,7 @@ def _launch_mlp_jet(params: Params, h0, d, dtt) -> Jet:
             out.data_ptr(), stream)
     _native.check(err, "fused_mlp_jet")
     LAUNCHES["fused_mlp_jet"] += 1
-    return _jet_from_streams(out, a, order)
+    return out
 
 
 def _check_seed(h0, d, dtt) -> None:
@@ -164,6 +173,17 @@ def _check_seed(h0, d, dtt) -> None:
 
 
 # -- wrappers ---------------------------------------------------------------
+#
+# Each ``*_stack`` function returns the jet as its (S, N, C) stream stack,
+# the layout the kernels write; the autograd Functions of fused_jet_vjp.py
+# use those.  The public wrappers return a Jet of views of it.
+
+def fused_seed_jet_stack(params: Params, h0, d, dtt=None) -> torch.Tensor:
+    _check_seed(h0, d, dtt)
+    if _on_cpu(h0):
+        return stack_jet(fused_seed_jet_reference(params, h0, d, dtt))
+    return _launch_mlp_jet(params, h0, d, dtt)
+
 
 def fused_seed_jet(params: Params, h0, d, dtt=None) -> Jet:
     """MLP jet seeded by a precomputed input jet (e.g. an embedding).
@@ -171,10 +191,21 @@ def fused_seed_jet(params: Params, h0, d, dtt=None) -> Jet:
     ``h0`` (N, E) value rows, ``d`` (A, N, E) tangent rows, ``dtt`` optional
     (N, E) second-time rows; E is the first layer's fan_in.
     """
-    _check_seed(h0, d, dtt)
-    if _on_cpu(h0):
-        return fused_seed_jet_reference(params, h0, d, dtt)
-    return _launch_mlp_jet(params, h0, d, dtt)
+    out = fused_seed_jet_stack(params, h0, d, dtt)
+    return jet_from_stack(out, d.shape[0], 2 if dtt is not None else 1)
+
+
+def fused_jet_stack(params: Params, x, *, order: int = 1, lb=None,
+                    ub=None) -> torch.Tensor:
+    if x.ndim != 2:
+        raise ValueError(f"x must be (N, A), got {tuple(x.shape)}")
+    _check_order(order)
+    if _on_cpu(x):
+        return stack_jet(fused_jet_reference(params, x, order=order, lb=lb,
+                                             ub=ub))
+    _require_f32_cuda("x", x, x.device)
+    h0, d, dtt = seed_jet(x, order=order, lb=lb, ub=ub)
+    return _launch_mlp_jet(params, h0.contiguous(), d.contiguous(), dtt)
 
 
 def fused_jet(params: Params, x, *, order: int = 1, lb=None, ub=None) -> Jet:
@@ -183,31 +214,20 @@ def fused_jet(params: Params, x, *, order: int = 1, lb=None, ub=None) -> Jet:
     The identity seed (scaled by the ``lb``/``ub`` normalization when given)
     is built here and run through the seeded kernel.
     """
-    if x.ndim != 2:
-        raise ValueError(f"x must be (N, A), got {tuple(x.shape)}")
-    _check_order(order)
-    if _on_cpu(x):
-        return fused_jet_reference(params, x, order=order, lb=lb, ub=ub)
-    _require_f32_cuda("x", x, x.device)
-    h0, d, dtt = seed_jet(x, order=order, lb=lb, ub=ub)
-    return _launch_mlp_jet(params, h0.contiguous(), d.contiguous(), dtt)
+    out = fused_jet_stack(params, x, order=order, lb=lb, ub=ub)
+    return jet_from_stack(out, x.shape[1], order)
 
 
-def fused_composite_jet(params: dict, x, *, order: int = 2, lb=None,
-                        ub=None) -> Jet:
-    """One-launch composite jet ``part + dist·uv`` of three MLPs.
-
-    All three nets see the same seed: raw coordinates, or coordinates
-    normalized by ``lb``/``ub`` when given.
-    """
+def fused_composite_jet_stack(params: dict, x, *, order: int = 2, lb=None,
+                              ub=None) -> torch.Tensor:
     if x.ndim != 2:
         raise ValueError(f"x must be (N, A), got {tuple(x.shape)}")
     if (lb is None) != (ub is None):
         raise ValueError("pass both lb and ub, or neither")
     _check_order(order)
     if _on_cpu(x):
-        return fused_composite_jet_reference(params, x, order=order, lb=lb,
-                                             ub=ub)
+        return stack_jet(fused_composite_jet_reference(params, x, order=order,
+                                                       lb=lb, ub=ub))
     device = x.device
     _require_f32_cuda("x", x, device)
     n, a = x.shape
@@ -231,4 +251,15 @@ def fused_composite_jet(params: dict, x, *, order: int = 2, lb=None,
             *args, out.data_ptr(), stream)
     _native.check(err, "fused_composite_jet")
     LAUNCHES["fused_composite_jet"] += 1
-    return _jet_from_streams(out, a, order)
+    return out
+
+
+def fused_composite_jet(params: dict, x, *, order: int = 2, lb=None,
+                        ub=None) -> Jet:
+    """One-launch composite jet ``part + dist·uv`` of three MLPs.
+
+    All three nets see the same seed: raw coordinates, or coordinates
+    normalized by ``lb``/``ub`` when given.
+    """
+    out = fused_composite_jet_stack(params, x, order=order, lb=lb, ub=ub)
+    return jet_from_stack(out, x.shape[1], order)

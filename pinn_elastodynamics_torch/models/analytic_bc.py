@@ -32,6 +32,12 @@ class AnalyticCompositeFieldModel:
     dist_fn: Callable
     part_fn: Callable
 
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device="cpu"):
+        # The composite layout minus the learned factors, so
+        # Phase(trainable="uv") works unchanged.
+        return {"uv": self.uv_model.init(generator, dtype, device)}
+
     def jet(self, params, xyt: torch.Tensor, order: Optional[int] = None) -> Jet:
         order = self.spec.jet_order if order is None else order
         uv = self.uv_model.jet(params["uv"], xyt, order=order)

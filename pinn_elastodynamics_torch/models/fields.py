@@ -7,8 +7,10 @@ package's layout.  ``CompositeFieldModel`` implements the hard-BC
 construction u = P + D·ũ as jet algebra.
 
 ``jet_impl`` selects the jet: ``"eager"`` (models/mlp.py), ``"kernel"``
-(the fused CUDA kernels, kernels/fused_jet.py; their plain version on a CPU
-tensor) or ``"auto"`` (the kernel for a CUDA tensor, eager for a CPU one).
+(the fused CUDA kernels through their autograd Functions,
+kernels/fused_jet_vjp.py; their plain versions on a CPU tensor) or
+``"auto"`` (the kernel for a CUDA tensor, eager for a CPU one).  ``init``
+methods draw from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -97,6 +99,10 @@ class MLPFieldModel:
     def layers(self) -> Tuple[int, ...]:
         return (self.spec.n_inputs,) + self.hidden + (self.spec.n_outputs,)
 
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device="cpu"):
+        return mlp_mod.init_mlp(generator, self.layers, dtype, device)
+
     def _norm_args(self):
         if not self.normalize:
             return {"lb": None, "ub": None}
@@ -108,9 +114,9 @@ class MLPFieldModel:
     def jet(self, params, xyt: torch.Tensor, order: Optional[int] = None) -> Jet:
         order = self.spec.jet_order if order is None else order
         if use_kernel(self.jet_impl, xyt):
-            from ..kernels.fused_jet import fused_jet
+            from ..kernels.fused_jet_vjp import fused_jet_vjp
 
-            return fused_jet(params, xyt, order=order, **self._norm_args())
+            return fused_jet_vjp(params, xyt, order=order, **self._norm_args())
         return mlp_mod.mlp_jet(params, xyt, order=order, **self._norm_args())
 
 
@@ -163,13 +169,19 @@ class CompositeFieldModel:
     def part_net(self) -> MLPFieldModel:
         return self._sub(self.part_hidden)
 
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device="cpu"):
+        return {k: getattr(self, f"{k}_net").init(generator, dtype, device)
+                for k in ("uv", "dist", "part")}
+
     def jet(self, params, xyt: torch.Tensor, order: Optional[int] = None) -> Jet:
         order = self.spec.jet_order if order is None else order
         if not self.uv_fourier and use_kernel(self.jet_impl, xyt):
-            # One launch for all three nets; they all see raw coordinates.
-            from ..kernels.fused_jet import fused_composite_jet
+            # One launch each way for all three nets; they all see raw
+            # coordinates.
+            from ..kernels.fused_jet_vjp import fused_composite_jet_vjp
 
-            return fused_composite_jet(params, xyt, order=order)
+            return fused_composite_jet_vjp(params, xyt, order=order)
         uv = self.uv_net.jet(params["uv"], xyt, order=order)
         dist = self.dist_net.jet(params["dist"], xyt, order=order)
         part = self.part_net.jet(params["part"], xyt, order=order)

@@ -8,7 +8,8 @@ Counterpart of ``pinn_elastodynamics_tpu/models/fourier.py``.  The embedding
     cos(z):  d = -sin(z)·dz_i     dtt = -cos(z)·z_t²
 
 computed here in plain tensor ops; the MLP tail continues from that seed,
-through the fused seeded-jet kernel when ``jet_impl`` selects it.  Params
+through the fused seeded-jet kernels when ``jet_impl`` selects them (whose
+backward returns the seed cotangent, so gradients reach ``B``).  Params
 are {'B': (A, F), 'mlp': [...]}.
 """
 
@@ -41,6 +42,14 @@ class FourierMLPFieldModel:
     @property
     def layers(self) -> Tuple[int, ...]:
         return (2 * self.n_features,) + self.hidden + (self.spec.n_outputs,)
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device="cpu"):
+        b = self.feature_scale * torch.randn(
+            (self.spec.n_inputs, self.n_features), generator=generator,
+            dtype=dtype)
+        return {"B": b.to(device),
+                "mlp": mlp_mod.init_mlp(generator, self.layers, dtype, device)}
 
     def _normalized(self, x):
         if not self.normalize:
@@ -84,7 +93,7 @@ class FourierMLPFieldModel:
         order = self.spec.jet_order if order is None else order
         h, d, dtt = self._embed_jet(params, xyt, order)
         if use_kernel(self.jet_impl, xyt):
-            from ..kernels.fused_jet import fused_seed_jet
+            from ..kernels.fused_jet_vjp import fused_seed_jet_vjp
 
-            return fused_seed_jet(params["mlp"], h, d, dtt)
+            return fused_seed_jet_vjp(params["mlp"], h, d, dtt)
         return mlp_mod.mlp_jet_from_seed(params["mlp"], h, d, dtt)

@@ -10,6 +10,7 @@ kernels (kernels/fused_jet.py), which run the same recurrence.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -17,6 +18,30 @@ import torch
 from ..ops.jet import Jet
 
 Params = List[dict]  # [{'W': (in, out), 'b': (out,)} per layer]
+
+
+def truncated_normal_xavier(generator: torch.Generator, shape, dtype,
+                            device="cpu") -> torch.Tensor:
+    """Xavier/Glorot stddev sqrt(2/(fan_in+fan_out)) times a unit normal
+    truncated to [-2, 2] (the reference's ``tf.truncated_normal`` init).
+
+    Drawn on the CPU from ``generator`` and moved to ``device``; torch does
+    not reproduce ``jax.random`` bits, only the distribution.
+    """
+    fan_in, fan_out = shape
+    u = torch.empty(shape, dtype=dtype)
+    torch.nn.init.trunc_normal_(u, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                generator=generator)
+    return (u * math.sqrt(2.0 / (fan_in + fan_out))).to(device)
+
+
+def init_mlp(generator: torch.Generator, layers: Sequence[int],
+             dtype=torch.float32, device="cpu") -> Params:
+    """Initialize an MLP ``layers = [in, h1, ..., out]``: Xavier weights,
+    zero biases."""
+    return [{"W": truncated_normal_xavier(generator, (fi, fo), dtype, device),
+             "b": torch.zeros((fo,), dtype=dtype, device=device)}
+            for fi, fo in zip(layers[:-1], layers[1:])]
 
 
 def mlp_layers(params: Params) -> List[int]:

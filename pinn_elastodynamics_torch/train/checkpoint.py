@@ -1,10 +1,10 @@
-"""Checkpoint reading and parameter conversion (PyTorch).
+"""Checkpoint I/O and parameter conversion (PyTorch).
 
-Counterpart of the read side of ``pinn_elastodynamics_tpu/train/
-checkpoint.py``:
+Counterpart of ``pinn_elastodynamics_tpu/train/checkpoint.py``:
 
 * **native** checkpoints are one pickle of a numpy tree (parameters under
-  ``"params"``, plus optimizer state and counters); :func:`load_checkpoint`
+  ``"params"``, plus optimizer state and counters);
+  :func:`save_checkpoint` writes one atomically, :func:`load_checkpoint`
   returns that tree as numpy;
 * **reference** pickles hold ``[weights_list, biases_list]`` with biases
   shaped (1, out); :func:`load_reference_pickle` returns MLP parameters.
@@ -17,13 +17,42 @@ file, so load only checkpoints this project wrote.
 
 from __future__ import annotations
 
+import os
 import pickle
+import tempfile
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.mlp import Params
+from ..models.mlp import Params, mlp_layers
+
+
+def save_checkpoint(path: str, tree) -> None:
+    """Atomically pickle a tree (params, optimizer state, counters), its
+    tensors as numpy arrays, so the JAX package reads it too."""
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return x
+
+    host = conv(tree)
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump(host, f)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
 
 
 def load_checkpoint(path: str, dtype=None):
@@ -82,3 +111,11 @@ def load_reference_pickle(path: str, *, device="cuda",
             raise ValueError(f"layer shape mismatch: W {w.shape} vs b {b.shape}")
         layers.append({"W": w, "b": b})
     return params_from_jax(layers, device=device, dtype=dtype)
+
+
+def assert_layers_match(params: Params, layers) -> None:
+    """The reference's load-time layer assert (train.py:299)."""
+    dims = mlp_layers(params)
+    if list(layers) != dims:
+        raise AssertionError(
+            f"checkpoint layers {dims} != expected {list(layers)}")
