@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the fused-jet CUDA kernels from ``pinn_elastodynamics_torch/kernels/
-csrc/`` (one ``nvcc`` call per source, started together, first use only),
-then, in order:
+csrc/`` (one ``nvcc`` call for both sources, first use only), then, in
+order:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds or loads the kernel libraries and prints the build seconds;
@@ -21,8 +21,9 @@ then, in order:
    ``predict_fields`` of both models;
 6. holds each backward kernel (B2 raw and with lb/ub, B3b seeded at the
    Fourier64 widths, B5 at the net-BC widths) to its plain float64 version
-   on the card, with random cotangents, at N = 65,536 and 1,000, order 1 and
-   2, and requires two runs to give bitwise-equal results;
+   on the card, with random cotangents, at N = 65,536, 1,000 and the
+   collocation bank's 103,711 (a partial last tile), order 1 and 2, and
+   requires two runs to give bitwise-equal results;
 7. trains the three plate configurations at ``scale=1.0`` (net-BC,
    analytic-BC + Fourier64 with ``trainable="uv.mlp"``, analytic-BC with a
    plain uv MLP): value+grad of the main phase loss on the kernel path
@@ -188,13 +189,15 @@ def device_breakdown(torch, fn, top=4):
 
 
 def bwd_flops_per_point(dims, n_streams):
-    """FLOPs per point of the backward kernel of one MLP, from its code:
-    remat of the hidden layers (2S), the non-value pre-activations (2(S-1)),
-    the weight gradient and the input cotangent (2S each) per hidden layer;
-    the weight gradient and input cotangent of the head."""
+    """FLOPs per point that the backward of one MLP jet needs: per hidden
+    layer the forward once (2S per weight), the weight gradient and the
+    input cotangent (2S each); the head's weight gradient and input
+    cotangent.  The kernel's recompute of the non-value pre-activations in
+    the reverse sweep saves memory, not work the function needs, so it is
+    not counted."""
     s = n_streams
     widths = [a * b for a, b in zip(dims[:-1], dims[1:])]
-    return (8 * s - 2) * sum(widths[:-1]) + 4 * s * widths[-1]
+    return 6 * s * sum(widths[:-1]) + 4 * s * widths[-1]
 
 
 def max_scaled(got, ref):
@@ -253,7 +256,7 @@ def backward_checks(torch, dev, rng, trees, fourier):
             raise AssertionError(f"{label}: dx error {x_scaled:.3e}")
         max_err[name] = max(max_err[name], g_abs, x_abs)
 
-    for n in (N_BIG, N_RAGGED):
+    for n in (N_BIG, N_RAGGED, N_TRAIN):
         x = spacetime(rng, n, torch, dev)
         x64 = x.double()
         for order in (1, 2):
@@ -492,6 +495,7 @@ def main() -> int:
     from pinn_elastodynamics_torch.eval.render import predict_fields
     from pinn_elastodynamics_torch.kernels import _native
     from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
     from pinn_elastodynamics_torch.models.fourier import FourierMLPFieldModel
     from pinn_elastodynamics_torch.models.fields import FieldSpec, SECOND_ORDER
     from pinn_elastodynamics_torch.serving import FieldEvaluator, FieldServer
@@ -544,7 +548,7 @@ def main() -> int:
             for order in (1, 2):
                 h, d, dtt = fourier._embed_jet(ana_p["uv"], x, order)
                 h64, d64, dtt64 = fourier._embed_jet(ana_p64["uv"], x64, order)
-                ker = fj.fused_seed_jet(ana_p["uv"]["mlp"], h, d, dtt)
+                ker = fv.fused_seed_jet_vjp(ana_p["uv"]["mlp"], h, d, dtt)
                 ref = fj.fused_seed_jet_reference(
                     ana_p64["uv"]["mlp"], h.double(), d.double(),
                     None if dtt is None else dtt.double())
@@ -553,12 +557,12 @@ def main() -> int:
                 max_err["fused_mlp_jet"] = max(max_err["fused_mlp_jet"], err)
 
                 kw = dict(order=order, lb=plate_hole.LB, ub=plate_hole.UB)
-                ker = fj.fused_jet(raw_p, x, **kw)
+                ker = fv.fused_jet_vjp(raw_p, x, **kw)
                 ref = fj.fused_jet_reference(raw_p64, x64, **kw)
                 err = check_jet(f"B1 raw lb/ub n={n} order={order}", ker, ref)
                 max_err["fused_mlp_jet"] = max(max_err["fused_mlp_jet"], err)
 
-                ker = fj.fused_composite_jet(net_p, x, order=order)
+                ker = fv.fused_composite_jet_vjp(net_p, x, order=order)
                 ref = fj.fused_composite_jet_reference(net_p64, x64, order=order)
                 err = check_jet(f"B4 composite n={n} order={order}", ker, ref)
                 max_err["fused_composite_jet"] = max(
@@ -646,7 +650,7 @@ def main() -> int:
         mlp = ana_p["uv"]["mlp"]
         timed = {
             "fused_mlp_jet": (
-                lambda: fj.fused_seed_jet(mlp, h, d),
+                lambda: fj.fused_seed_jet_stack(mlp, h, d),
                 lambda: fj.fused_seed_jet_reference(mlp, h, d),
                 flops_per_point(four_dims, 4) * N_BIG,
                 (h.numel() + d.numel() + 4 * N_BIG * 5) * 4
@@ -654,7 +658,7 @@ def main() -> int:
                 "pinn_elastodynamics_tpu/kernels/fused_jet.py:116",
             ),
             "fused_composite_jet": (
-                lambda: fj.fused_composite_jet(net_p, x, order=1),
+                lambda: fj.fused_composite_jet_stack(net_p, x, order=1),
                 lambda: fj.fused_composite_jet_reference(net_p, x, order=1),
                 sum(flops_per_point(dims, 4)
                     for dims in (uv_dims, small_dims, small_dims)) * N_BIG,

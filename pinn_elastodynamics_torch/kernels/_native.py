@@ -1,13 +1,12 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-Each source (``fused_jet.cu``: the forward jets; ``fused_jet_vjp.cu``: their
-backward) has a plain C interface and is compiled by its own ``nvcc`` call
-into a shared library, loaded with ``ctypes``; no PyTorch header is
-involved, which keeps a build to seconds.  The calls for all missing
-libraries start together and run in parallel.  A library is built at first
+The sources (``fused_jet.cu``: the forward jets; ``fused_jet_vjp.cu``: their
+backward) have a plain C interface and are compiled by one ``nvcc`` call
+into one shared library, loaded with ``ctypes``; no PyTorch header is
+involved, which keeps a build to seconds.  The library is built at first
 use into ``pinn_elastodynamics_torch/_build/`` under a name that carries a
-hash of its source, the shared header and the flags, so an unchanged source
-reuses it.  A build compiles to a private temporary name and is moved into
+hash of the sources, the shared header and the flags, so unchanged sources
+reuse it.  A build compiles to a private temporary name and is moved into
 place with ``os.replace``, so concurrent builds never see a partial file and
 no lock file is needed.  Nothing falls back: a failed build or load raises
 with the compiler's output.
@@ -22,11 +21,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"fused_jet": CSRC / "fused_jet.cu",
-           "fused_jet_vjp": CSRC / "fused_jet_vjp.cu"}
+SOURCES = (CSRC / "fused_jet.cu", CSRC / "fused_jet_vjp.cu")
 HEADERS = (CSRC / "jet_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
@@ -38,31 +36,26 @@ NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "fused_jet": {
-        # seed_f, seed_d, seed_tt, n, n_tangents, order, packed, dims,
-        # n_layers, out, stream
-        "fused_mlp_jet_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
-        # x, n, a, order, lb, ub, (packed, dims, n_layers) x 3, out, stream
-        "fused_composite_jet_launch": [
-            _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P,
-            _P],
-    },
-    "fused_jet_vjp": {
-        # seed_f, seed_d, seed_tt, cot, n, n_tangents, order, packed, dims,
-        # n_layers, full_dx, max_blocks, partial, grad, dseed, stream
-        "fused_mlp_jet_bwd_launch": [
-            _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-        # x, n, a, order, lb, ub, (packed, dims, n_layers) x 3, cot,
-        # max_blocks, partial, grad, dx, stream
-        "fused_composite_jet_bwd_launch": [
-            _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P,
-            _I, _P, _P, _P, _P],
-    },
+SIGNATURES = {
+    # seed_f, seed_d, seed_tt, n, n_tangents, order, packed, dims, n_layers,
+    # out, stream
+    "fused_mlp_jet_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
+    # x, n, a, order, lb, ub, (packed, dims, n_layers) x 3, out, stream
+    "fused_composite_jet_launch": [
+        _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P],
+    # seed_f, seed_d, seed_tt, cot, n, n_tangents, order, packed, dims,
+    # n_layers, full_dx, max_blocks, partial, grad, dseed, stream
+    "fused_mlp_jet_bwd_launch": [
+        _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # x, n, a, order, lb, ub, (packed, dims, n_layers) x 3, cot, max_blocks,
+    # partial, grad, dx, stream
+    "fused_composite_jet_bwd_launch": [
+        _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I,
+        _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_lib: Optional[ctypes.CDLL] = None
 
 
 def _nvcc() -> str:
@@ -76,68 +69,54 @@ def _nvcc() -> str:
         "needed to build the fused-jet kernels")
 
 
-def library_path(name: str = "fused_jet") -> Path:
-    """Where the library ``name`` for the current sources and flags lives."""
-    digest = hashlib.sha256(SOURCES[name].read_bytes())
-    for header in HEADERS:
-        digest.update(header.read_bytes())
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256()
+    for path in SOURCES + HEADERS:
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libfused_jet_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Dict[str, Path]:
-    """Compile every library that has no build of its exact source yet.
-
-    One ``nvcc`` process per missing library, all started before any is
-    waited for.
-    """
-    paths = {name: library_path(name) for name in SOURCES}
-    missing = [name for name, lib in paths.items() if not lib.exists()]
-    if not missing:
-        return paths
+def build() -> Path:
+    """Compile the library unless a build of its exact sources exists."""
+    lib = library_path()
+    if lib.exists():
+        return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    jobs = []
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     try:
-        for name in missing:
-            lib = paths[name]
-            tmp = lib.with_name(
-                f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-            jobs.append((lib, tmp, cmd, proc))
-        for lib, tmp, cmd, proc in jobs:
-            out, err = proc.communicate(timeout=BUILD_TIMEOUT_S)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{err}{out}")
-            os.replace(tmp, lib)
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+        os.replace(tmp, lib)
     finally:
-        for _, tmp, _, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            tmp.unlink(missing_ok=True)
-    return paths
+        tmp.unlink(missing_ok=True)
+    return lib
 
 
-def library(name: str = "fused_jet") -> ctypes.CDLL:
-    """The loaded kernel library ``name``; the first use builds them all."""
+def bind(path) -> ctypes.CDLL:
+    """Load a library of these sources and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.fused_jet_error_string.argtypes = [ctypes.c_int]
+    lib.fused_jet_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library; the first use builds it."""
+    global _lib
     with _lock:
-        if not _libs:
-            for lib_name, path in build().items():
-                lib = ctypes.CDLL(str(path))
-                for fn_name, argtypes in _SIGNATURES[lib_name].items():
-                    fn = getattr(lib, fn_name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                _libs[lib_name] = lib
-            err_fn = _libs["fused_jet"].fused_jet_error_string
-            err_fn.argtypes = [ctypes.c_int]
-            err_fn.restype = ctypes.c_char_p
-        return _libs[name]
+        if _lib is None:
+            _lib = bind(build())
+        return _lib
 
 
 def check(err: int, what: str) -> None:

@@ -29,12 +29,13 @@
 // Everything is IEEE f32 on the CUDA cores (FFMA, tanhf): no TF32, no fast
 // math, as in the forward kernels.
 //
-// What bounds it on an H100: operations.  Per point the backward recomputes
-// the forward (2 S sum fan_in fan_out FLOPs), the non-value pre-activations
-// of every hidden layer (2 (S - 1) sum over hidden layers), the weight
-// gradients and the input cotangents (2 S sum fan_in fan_out each): about
-// 3.8 times the forward, against a few hundred bytes of seed, cotangent and
-// result per point.
+// What bounds it on an H100: operations.  Per point the function needs the
+// forward once (2 S sum fan_in fan_out FLOPs), the weight gradients and the
+// input cotangents (2 S sum fan_in fan_out each): three times the forward,
+// against a few hundred bytes of seed, cotangent and result per point.  This
+// kernel also recomputes the non-value pre-activations of every hidden layer
+// in the reverse sweep (2 (S - 1) sum over hidden layers), which saves
+// shared memory and is not work the function needs.
 //
 // Design.  The Pallas kernels zero dW/db at grid step 0 and accumulate into
 // an output block that every step revisits, which is safe only because a

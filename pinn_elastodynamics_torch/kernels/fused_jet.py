@@ -1,18 +1,23 @@
-"""Fused-jet forward kernels: wrappers, plain versions and launch counts.
+"""Fused-jet forward kernels: launchers, plain versions and launch counts.
 
 Counterpart of ``pinn_elastodynamics_tpu/kernels/fused_jet.py``.  The Pallas
 TPU kernels become two hand-written CUDA kernels (``csrc/fused_jet.cu``):
 
-* ``fused_mlp_jet`` — the whole-MLP jet forward from seed streams, used by
-  :func:`fused_seed_jet` (caller-supplied seed, e.g. a Fourier embedding)
-  and :func:`fused_jet` (raw or normalized coordinates, seed built here);
+* ``fused_mlp_jet`` — the whole-MLP jet forward from seed streams, launched
+  by :func:`fused_seed_jet_stack` (caller-supplied seed, e.g. a Fourier
+  embedding) and :func:`fused_jet_stack` (raw or normalized coordinates,
+  seed built here);
 * ``fused_composite_jet`` — the uv, dist and part nets on raw points and
-  the product-rule combine ``part + dist * uv`` in one launch.
+  the product-rule combine ``part + dist * uv`` in one launch
+  (:func:`fused_composite_jet_stack`).
 
-Each wrapper takes the plain PyTorch version for a tensor on the CPU and the
-kernel for a CUDA tensor; anything else raises.  The kernels compute in f32
-and take f32, contiguous CUDA tensors.  ``LAUNCHES`` counts kernel launches
-by kernel name (one is added where a kernel is launched, nowhere else).
+Each launcher returns the jet's (S, N, C) stream stack and takes the plain
+PyTorch version for a tensor on the CPU and the kernel for a CUDA tensor;
+anything else raises.  Callers use the differentiable entry points of
+``fused_jet_vjp.py``, which run these launchers forward.  The kernels
+compute in f32 and take f32, contiguous CUDA tensors.  ``LAUNCHES`` counts
+kernel launches by kernel name (one is added where a kernel is launched,
+nowhere else).
 """
 
 from __future__ import annotations
@@ -41,18 +46,18 @@ def reset_launches() -> None:
 
 def fused_jet_reference(params: Params, x, *, order: int = 1, lb=None,
                         ub=None) -> Jet:
-    """Plain version of :func:`fused_jet`: the eager jet recurrence."""
+    """Plain version of :func:`fused_jet_stack`: the eager jet recurrence."""
     return mlp_jet(params, x, order=order, lb=lb, ub=ub)
 
 
 def fused_seed_jet_reference(params: Params, h0, d, dtt=None) -> Jet:
-    """Plain version of :func:`fused_seed_jet`."""
+    """Plain version of :func:`fused_seed_jet_stack`."""
     return mlp_jet_from_seed(params, h0, d, dtt)
 
 
 def fused_composite_jet_reference(params: dict, x, *, order: int = 2,
                                   lb=None, ub=None) -> Jet:
-    """Plain version of :func:`fused_composite_jet`: part + dist·uv."""
+    """Plain version of :func:`fused_composite_jet_stack`: part + dist·uv."""
     kw = dict(order=order, lb=lb, ub=ub)
     uv = mlp_jet(params["uv"], x, **kw)
     dist = mlp_jet(params["dist"], x, **kw)
@@ -172,27 +177,17 @@ def _check_seed(h0, d, dtt) -> None:
         raise ValueError(f"dtt {tuple(dtt.shape)} != h0 {tuple(h0.shape)}")
 
 
-# -- wrappers ---------------------------------------------------------------
+# -- launchers ----------------------------------------------------------------
 #
-# Each ``*_stack`` function returns the jet as its (S, N, C) stream stack,
-# the layout the kernels write; the autograd Functions of fused_jet_vjp.py
-# use those.  The public wrappers return a Jet of views of it.
+# Each returns the jet as its (S, N, C) stream stack, the layout the kernels
+# write.  They carry no gradient: the autograd Functions of fused_jet_vjp.py
+# call them forward and are the entry points.
 
 def fused_seed_jet_stack(params: Params, h0, d, dtt=None) -> torch.Tensor:
     _check_seed(h0, d, dtt)
     if _on_cpu(h0):
         return stack_jet(fused_seed_jet_reference(params, h0, d, dtt))
     return _launch_mlp_jet(params, h0, d, dtt)
-
-
-def fused_seed_jet(params: Params, h0, d, dtt=None) -> Jet:
-    """MLP jet seeded by a precomputed input jet (e.g. an embedding).
-
-    ``h0`` (N, E) value rows, ``d`` (A, N, E) tangent rows, ``dtt`` optional
-    (N, E) second-time rows; E is the first layer's fan_in.
-    """
-    out = fused_seed_jet_stack(params, h0, d, dtt)
-    return jet_from_stack(out, d.shape[0], 2 if dtt is not None else 1)
 
 
 def fused_jet_stack(params: Params, x, *, order: int = 1, lb=None,
@@ -206,16 +201,6 @@ def fused_jet_stack(params: Params, x, *, order: int = 1, lb=None,
     _require_f32_cuda("x", x, x.device)
     h0, d, dtt = seed_jet(x, order=order, lb=lb, ub=ub)
     return _launch_mlp_jet(params, h0.contiguous(), d.contiguous(), dtt)
-
-
-def fused_jet(params: Params, x, *, order: int = 1, lb=None, ub=None) -> Jet:
-    """Fused-kernel version of ``mlp_jet`` (f32) from (N, A) coordinates.
-
-    The identity seed (scaled by the ``lb``/``ub`` normalization when given)
-    is built here and run through the seeded kernel.
-    """
-    out = fused_jet_stack(params, x, order=order, lb=lb, ub=ub)
-    return jet_from_stack(out, x.shape[1], order)
 
 
 def fused_composite_jet_stack(params: dict, x, *, order: int = 2, lb=None,
@@ -252,14 +237,3 @@ def fused_composite_jet_stack(params: dict, x, *, order: int = 2, lb=None,
     _native.check(err, "fused_composite_jet")
     LAUNCHES["fused_composite_jet"] += 1
     return out
-
-
-def fused_composite_jet(params: dict, x, *, order: int = 2, lb=None,
-                        ub=None) -> Jet:
-    """One-launch composite jet ``part + dist·uv`` of three MLPs.
-
-    All three nets see the same seed: raw coordinates, or coordinates
-    normalized by ``lb``/``ub`` when given.
-    """
-    out = fused_composite_jet_stack(params, x, order=order, lb=lb, ub=ub)
-    return jet_from_stack(out, x.shape[1], order)

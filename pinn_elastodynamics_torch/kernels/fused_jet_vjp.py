@@ -201,7 +201,7 @@ def _launch_mlp_bwd(params: Params, h0, d, dtt, cot, full_dx: bool, key: str):
     grad = torch.empty_like(packed)
     dseed = torch.empty((s, n, e) if full_dx else (n, e), dtype=torch.float32,
                         device=device)
-    lib = _native.library("fused_jet_vjp")
+    lib = _native.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fused_mlp_jet_bwd_launch(
@@ -233,7 +233,7 @@ def fused_mlp_jet_bwd(params: Params, h0, d, dtt, cot, *,
 def fused_composite_jet_bwd(params: dict, x, cot, *, order: int = 2, lb=None,
                             ub=None) -> Tuple[Dict[str, List[dict]],
                                               torch.Tensor]:
-    """Backward of :func:`fused_composite_jet` (B5): (gradients, dh0)."""
+    """Backward of the composite jet (B5): (gradients, dh0)."""
     _check_order(order)
     if _on_cpu(x):
         return composite_jet_bwd_reference(params, x, cot, order=order,
@@ -254,7 +254,7 @@ def fused_composite_jet_bwd(params: dict, x, cot, *, order: int = 2, lb=None,
     args = []
     for packed, dims in nets:
         args += [packed.data_ptr(), _int_array(dims), len(dims) - 1]
-    lib = _native.library("fused_jet_vjp")
+    lib = _native.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fused_composite_jet_bwd_launch(
@@ -361,23 +361,27 @@ def _split(leaves, counts) -> dict:
 
 def fused_jet_vjp(params: Params, x, *, order: int = 1, lb=None,
                   ub=None) -> Jet:
-    """Differentiable :func:`fused_jet`: gradients reach ``params`` and
-    ``x`` through the B2 backward."""
+    """MLP jet of (N, A) coordinates (``mlp_jet``), normalized by ``lb``/``ub``
+    when given: forward B1, gradients reach ``params`` and ``x`` through the
+    B2 backward."""
     out = _FusedJet.apply(x, order, lb, ub, *_leaves(params))
     return jet_from_stack(out, x.shape[1], order)
 
 
 def fused_seed_jet_vjp(params: Params, h0, d, dtt=None) -> Jet:
-    """Differentiable :func:`fused_seed_jet`: gradients reach ``params`` and
-    every seed stream (and through them the embedding) via B3b."""
+    """MLP jet from a precomputed seed (e.g. an embedding): ``h0`` (N, E)
+    value rows, ``d`` (A, N, E) tangent rows, ``dtt`` optional (N, E).
+    Forward B1; gradients reach ``params`` and every seed stream (and
+    through them the embedding) via B3b."""
     out = _FusedSeedJet.apply(h0, d, dtt, *_leaves(params))
     return jet_from_stack(out, d.shape[0], 2 if dtt is not None else 1)
 
 
 def fused_composite_jet_vjp(params: dict, x, *, order: int = 2, lb=None,
                             ub=None) -> Jet:
-    """Differentiable :func:`fused_composite_jet` (``part + dist·uv``):
-    gradients reach all three nets and ``x`` through the B5 backward."""
+    """Composite jet ``part + dist·uv`` of three MLPs that all see the same
+    seed (raw coordinates, or normalized by ``lb``/``ub``): forward B4 in one
+    launch, gradients reach all three nets and ``x`` through B5."""
     leaves = [_leaves(params[k]) for k in NETS]
     out = _FusedCompositeJet.apply(x, order, lb, ub,
                                    tuple(len(l) for l in leaves),

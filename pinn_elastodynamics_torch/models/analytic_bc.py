@@ -33,7 +33,7 @@ class AnalyticCompositeFieldModel:
     part_fn: Callable
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
-             device="cpu"):
+             device="cuda"):
         # The composite layout minus the learned factors, so
         # Phase(trainable="uv") works unchanged.
         return {"uv": self.uv_model.init(generator, dtype, device)}

@@ -100,7 +100,7 @@ class MLPFieldModel:
         return (self.spec.n_inputs,) + self.hidden + (self.spec.n_outputs,)
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
-             device="cpu"):
+             device="cuda"):
         return mlp_mod.init_mlp(generator, self.layers, dtype, device)
 
     def _norm_args(self):
@@ -170,7 +170,7 @@ class CompositeFieldModel:
         return self._sub(self.part_hidden)
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
-             device="cpu"):
+             device="cuda"):
         return {k: getattr(self, f"{k}_net").init(generator, dtype, device)
                 for k in ("uv", "dist", "part")}
 

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..ops.jet import Jet
 from . import mlp as mlp_mod
 from .fields import FieldSpec, use_kernel
@@ -44,7 +45,8 @@ class FourierMLPFieldModel:
         return (2 * self.n_features,) + self.hidden + (self.spec.n_outputs,)
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
-             device="cpu"):
+             device="cuda"):
+        device = resolve_device(device)
         b = self.feature_scale * torch.randn(
             (self.spec.n_inputs, self.n_features), generator=generator,
             dtype=dtype)

@@ -15,13 +15,14 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..device import resolve_device
 from ..ops.jet import Jet
 
 Params = List[dict]  # [{'W': (in, out), 'b': (out,)} per layer]
 
 
 def truncated_normal_xavier(generator: torch.Generator, shape, dtype,
-                            device="cpu") -> torch.Tensor:
+                            device="cuda") -> torch.Tensor:
     """Xavier/Glorot stddev sqrt(2/(fan_in+fan_out)) times a unit normal
     truncated to [-2, 2] (the reference's ``tf.truncated_normal`` init).
 
@@ -32,13 +33,15 @@ def truncated_normal_xavier(generator: torch.Generator, shape, dtype,
     u = torch.empty(shape, dtype=dtype)
     torch.nn.init.trunc_normal_(u, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=generator)
-    return (u * math.sqrt(2.0 / (fan_in + fan_out))).to(device)
+    scale = math.sqrt(2.0 / (fan_in + fan_out))
+    return (u * scale).to(resolve_device(device))
 
 
 def init_mlp(generator: torch.Generator, layers: Sequence[int],
-             dtype=torch.float32, device="cpu") -> Params:
+             dtype=torch.float32, device="cuda") -> Params:
     """Initialize an MLP ``layers = [in, h1, ..., out]``: Xavier weights,
-    zero biases."""
+    zero biases, on ``device`` (the GPU unless the CPU is asked for)."""
+    device = resolve_device(device)
     return [{"W": truncated_normal_xavier(generator, (fi, fo), dtype, device),
              "b": torch.zeros((fo,), dtype=dtype, device=device)}
             for fi, fo in zip(layers[:-1], layers[1:])]

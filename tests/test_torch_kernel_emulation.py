@@ -13,7 +13,6 @@ signatures as the real one.  It checks the kernels' indexing, layouts,
 reductions and ragged tiles, not their behaviour under real concurrency.
 """
 
-import ctypes
 import re
 import shutil
 import subprocess
@@ -82,37 +81,32 @@ void emu_launch(int grid, int, size_t bytes, cudaStream_t, K k, A... args) {
 """
 
 
-def _emulated(tmp_path, name):
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    """Both CUDA sources, emulated, in one library like the real build."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulation")
-    (tmp_path / "cuda_runtime.h").write_text(STUB)
+    tmp = tmp_path_factory.mktemp("emulation")
+    (tmp / "cuda_runtime.h").write_text(STUB)
     for header in _native.HEADERS:
-        shutil.copy(header, tmp_path / header.name)
-    src = _native.SOURCES[name].read_text()
-    src = re.sub(r"(\w+(?:<S, DTT>)?)\s*<<<([^>]*)>>>\(",
-                 r"emu_launch(\2, \1, ", src)
-    src = src.replace("extern __shared__ float4 smem4[];",
-                      "float4* smem4 = emu_smem;")
-    cpp = tmp_path / f"{name}.cpp"
-    cpp.write_text(src)
-    lib = tmp_path / f"lib{name}.so"
+        shutil.copy(header, tmp / header.name)
+    cpps = []
+    for source in _native.SOURCES:
+        src = re.sub(r"(\w+(?:<S, DTT>)?)\s*<<<([^>]*)>>>\(",
+                     r"emu_launch(\2, \1, ", source.read_text())
+        src = src.replace("extern __shared__ float4 smem4[];",
+                          "float4* smem4 = emu_smem;")
+        cpp = tmp / f"{source.stem}.cpp"
+        cpp.write_text(src)
+        cpps.append(str(cpp))
+    out_lib = tmp / "libfused_jet_emulated.so"
     out = subprocess.run(
         [gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-Wno-unknown-pragmas",
-         "-I", str(tmp_path), "-o", str(lib), str(cpp)],
+         "-I", str(tmp), "-o", str(out_lib), *cpps],
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    dll = ctypes.CDLL(str(lib))
-    for fn, argtypes in _native._SIGNATURES[name].items():
-        getattr(dll, fn).argtypes = argtypes
-        getattr(dll, fn).restype = ctypes.c_int
-    return dll
-
-
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("emulation")
-    return {name: _emulated(tmp, name) for name in _native.SOURCES}
+    return _native.bind(out_lib)
 
 
 def _mlp(rng, dims):
@@ -161,7 +155,7 @@ def _mlp_bwd(lib, params, h0, d, dtt, cot, full_dx, max_blocks):
 
 @pytest.mark.parametrize("order", [1, 2])
 @pytest.mark.parametrize("a", [3, 4])
-def test_emulated_mlp_backward_matches_plain(libs, a, order):
+def test_emulated_mlp_backward_matches_plain(lib, a, order):
     """B2 (value-row seed cotangent) and B3b (full seed cotangent), ragged
     tiles, one and several blocks, and a Fourier-width seed."""
     rng = np.random.default_rng(10 * a + order)
@@ -175,7 +169,7 @@ def test_emulated_mlp_backward_matches_plain(libs, a, order):
                if order == 2 else None)
         cot = torch.as_tensor(rng.standard_normal((s, n, 5)),
                               dtype=torch.float32)
-        grads, dseed = _mlp_bwd(libs["fused_jet_vjp"], params, h0, d, dtt, cot,
+        grads, dseed = _mlp_bwd(lib, params, h0, d, dtt, cot,
                                 full_dx, max_blocks)
         want, want_seed = tvjp.mlp_jet_bwd_reference(
             _f64(params), h0.double(), d.double(),
@@ -183,7 +177,7 @@ def test_emulated_mlp_backward_matches_plain(libs, a, order):
         for g, w in zip(tree_leaves(grads), tree_leaves(want)):
             _close(g, w)
         _close(dseed, want_seed if full_dx else want_seed[0])
-        again = _mlp_bwd(libs["fused_jet_vjp"], params, h0, d, dtt, cot,
+        again = _mlp_bwd(lib, params, h0, d, dtt, cot,
                          full_dx, max_blocks)
         assert all(torch.equal(x, y) for x, y in
                    zip(tree_leaves(again), tree_leaves((grads, dseed))))
@@ -191,7 +185,7 @@ def test_emulated_mlp_backward_matches_plain(libs, a, order):
 
 @pytest.mark.parametrize("order", [1, 2])
 @pytest.mark.parametrize("a", [3, 4])
-def test_emulated_composite_backward_matches_plain(libs, a, order):
+def test_emulated_composite_backward_matches_plain(lib, a, order):
     """B5, raw and normalised coordinates, ragged tiles."""
     rng = np.random.default_rng(20 * a + order)
     s = 1 + a + order - 1
@@ -210,7 +204,7 @@ def test_emulated_composite_backward_matches_plain(libs, a, order):
             partial = torch.empty(max_blocks, sum(sizes))
             grad = torch.empty(sum(sizes))
             dh0 = torch.empty(n, a)
-            err = libs["fused_jet_vjp"].fused_composite_jet_bwd_launch(
+            err = lib.fused_composite_jet_bwd_launch(
                 x.data_ptr(), n, a, order, _float_array(lb), _float_array(ub),
                 *args, cot.data_ptr(), max_blocks, partial.data_ptr(),
                 grad.data_ptr(), dh0.data_ptr(), None)
@@ -227,10 +221,9 @@ def test_emulated_composite_backward_matches_plain(libs, a, order):
 
 
 @pytest.mark.parametrize("order", [1, 2])
-def test_emulated_forward_kernels_match_plain(libs, order):
+def test_emulated_forward_kernels_match_plain(lib, order):
     """B1 (seeded) and B4 (composite, raw and normalised)."""
     rng = np.random.default_rng(30 + order)
-    lib = libs["fused_jet"]
     n, a = 45, 3
     s = 1 + a + order - 1
     params = _mlp(rng, [12, 16, 9, 5])

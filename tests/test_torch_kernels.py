@@ -1,7 +1,7 @@
-"""PyTorch port: fused-jet kernel wrappers on CPU tensors against the JAX
-Pallas kernels in interpret mode (f32), plus the wrappers' checks.
+"""PyTorch port: the fused-jet entry points' forward on CPU tensors against
+the JAX Pallas kernels in interpret mode (f32), plus the launchers' checks.
 
-On a CPU tensor each wrapper runs its plain version; the CUDA kernels
+On a CPU tensor each launcher runs its plain version; the CUDA kernels
 themselves are held to the same plain versions on the card by
 chip_smoke.py.
 """
@@ -14,6 +14,7 @@ import torch
 from pinn_elastodynamics_tpu.kernels import fused_jet as jfj
 from pinn_elastodynamics_torch.kernels import _native
 from pinn_elastodynamics_torch.kernels import fused_jet as tfj
+from pinn_elastodynamics_torch.kernels import fused_jet_vjp as tvjp
 
 ATOL = 2e-6  # tests/test_pallas_kernel.py's forward tolerance
 LB, UB = (0.0, 0.0, 0.0), (0.5, 0.5, 10.0)
@@ -70,7 +71,7 @@ def test_fused_seed_jet_matches_pallas(order):
                               None if dtt is None else _jax(dtt),
                               block=128, interpret=True)
     tdtt = None if dtt is None else _torch(dtt)
-    got = tfj.fused_seed_jet(_torch(params), _torch(h0), _torch(d), tdtt)
+    got = tvjp.fused_seed_jet_vjp(_torch(params), _torch(h0), _torch(d), tdtt)
     _assert_jet(got, want)
     ref = tfj.fused_seed_jet_reference(_torch(params), _torch(h0), _torch(d), tdtt)
     _assert_jet(ref, want)
@@ -85,7 +86,7 @@ def test_fused_jet_matches_pallas(order, norm):
     kw = dict(lb=LB, ub=UB) if norm else {}
     want = jfj.fused_jet(_jax(params), _jax(x), order=order, block=128,
                          interpret=True, **kw)
-    got = tfj.fused_jet(_torch(params), _torch(x), order=order, **kw)
+    got = tvjp.fused_jet_vjp(_torch(params), _torch(x), order=order, **kw)
     _assert_jet(got, want)
     _assert_jet(tfj.fused_jet_reference(_torch(params), _torch(x), order=order,
                                         **kw), want)
@@ -102,7 +103,8 @@ def test_fused_composite_jet_matches_pallas(order, norm):
     kw = dict(lb=LB, ub=UB) if norm else {}
     want = jfj.fused_composite_jet(_jax(params), _jax(x), order=order,
                                    block=128, interpret=True, **kw)
-    got = tfj.fused_composite_jet(_torch(params), _torch(x), order=order, **kw)
+    got = tvjp.fused_composite_jet_vjp(_torch(params), _torch(x), order=order,
+                                       **kw)
     _assert_jet(got, want)
     _assert_jet(tfj.fused_composite_jet_reference(_torch(params), _torch(x),
                                                   order=order, **kw), want)
@@ -113,8 +115,9 @@ def test_cpu_path_launches_no_kernel():
     params = _torch(_mlp_params(rng, [3, 8, 5]))
     x = _torch(_points(rng, 10))
     tfj.reset_launches()
-    tfj.fused_jet(params, x, order=2)
-    tfj.fused_composite_jet({"uv": params, "dist": params, "part": params}, x)
+    tvjp.fused_jet_vjp(params, x, order=2)
+    tvjp.fused_composite_jet_vjp(
+        {"uv": params, "dist": params, "part": params}, x)
     assert tfj.LAUNCHES == {"fused_mlp_jet": 0, "fused_composite_jet": 0}
 
 
@@ -123,18 +126,19 @@ def test_wrappers_reject_bad_arguments():
     params = _torch(_mlp_params(rng, [3, 8, 5]))
     x = _torch(_points(rng, 10))
     with pytest.raises(ValueError, match="order"):
-        tfj.fused_jet(params, x, order=3)
+        tvjp.fused_jet_vjp(params, x, order=3)
     with pytest.raises(ValueError, match="lb and ub"):
-        tfj.fused_composite_jet({"uv": params, "dist": params, "part": params},
-                                x, lb=LB)
+        tvjp.fused_composite_jet_vjp(
+            {"uv": params, "dist": params, "part": params}, x, lb=LB)
     with pytest.raises(ValueError, match=r"\(N, A\)"):
-        tfj.fused_jet(params, x[0])
+        tvjp.fused_jet_vjp(params, x[0])
     with pytest.raises(ValueError, match="seed shapes"):
-        tfj.fused_seed_jet(params, x, torch.zeros(3, 9, 3))
+        tvjp.fused_seed_jet_vjp(params, x, torch.zeros(3, 9, 3))
     with pytest.raises(ValueError, match="dtt"):
-        tfj.fused_seed_jet(params, x, torch.zeros(3, 10, 3), torch.zeros(10, 2))
+        tvjp.fused_seed_jet_vjp(params, x, torch.zeros(3, 10, 3),
+                                torch.zeros(10, 2))
     with pytest.raises(ValueError, match="device"):
-        tfj.fused_jet(params, x.to("meta"))
+        tvjp.fused_jet_vjp(params, x.to("meta"))
 
 
 def test_native_build_names_and_errors(monkeypatch):

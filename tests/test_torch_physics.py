@@ -123,7 +123,7 @@ def test_residuals_match_nested_autodiff(plane):
     rng = np.random.default_rng(3)
     spec, _ = _specs(2, "second_order")
     model = tfields.MLPFieldModel(spec=spec, hidden=(16, 16))
-    params = model.init(torch.Generator().manual_seed(1), F64)
+    params = model.init(torch.Generator().manual_seed(1), F64, "cpu")
     xyt = torch.as_tensor(rng.uniform(size=(7, 3)))
     mat = tel.Material(**MAT)
     res = tres.residuals(model.jet(params, xyt), spec, mat, plane)

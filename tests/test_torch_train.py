@@ -27,6 +27,7 @@ from pinn_elastodynamics_torch.utils import treepath as ttreepath
 from pinn_elastodynamics_torch.utils.tree import tree_leaves
 
 F64 = torch.float64
+CPU = "cpu"
 REL = 1e-10
 LR = 1e-3
 
@@ -108,7 +109,7 @@ def test_xavier_init_stats():
     fan_out)) after the ±2σ truncation, support within ±2σ — the checks of
     tests/test_jet_mlp.py::test_xavier_init_stats."""
     w = tmlp.truncated_normal_xavier(torch.Generator().manual_seed(0),
-                                     (400, 300), F64)
+                                     (400, 300), F64, "cpu")
     std = float(np.sqrt(2.0 / 700.0))
     assert abs(float(w.mean())) < 0.001
     assert abs(float(w.std()) - std * 0.88) < 0.01
@@ -118,29 +119,48 @@ def test_xavier_init_stats():
 def test_model_init_layouts_and_seeding():
     spec = tfields.FieldSpec(ndim=2, formulation=tfields.SECOND_ORDER)
     gen = lambda s: torch.Generator().manual_seed(s)
-    params = tmlp.init_mlp(gen(0), [3, 20, 30, 5], torch.float32)
+    params = tmlp.init_mlp(gen(0), [3, 20, 30, 5], torch.float32, "cpu")
     assert [tuple(l["W"].shape) for l in params] == [(3, 20), (20, 30), (30, 5)]
     assert all(float(l["b"].abs().max()) == 0.0 for l in params)
     composite = tplate.build_model(jet_impl="eager")
-    a, b = composite.init(gen(3)), composite.init(gen(3))
+    a = composite.init(gen(3), device=CPU)
+    b = composite.init(gen(3), device=CPU)
     assert sorted(a) == ["dist", "part", "uv"]
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     assert not torch.equal(a["uv"][0]["W"],
-                           composite.init(gen(4))["uv"][0]["W"])
+                           composite.init(gen(4), device=CPU)["uv"][0]["W"])
     fourier = tfourier.FourierMLPFieldModel(spec=spec, hidden=(8,),
                                             n_features=500, feature_scale=2.0)
-    p = fourier.init(gen(5), F64)
+    p = fourier.init(gen(5), F64, CPU)
     assert p["B"].shape == (3, 500)
     assert abs(float(p["B"].std()) - 2.0) < 0.1
     analytic = tplate.build_model(bc="analytic", fourier=64)
-    assert tmlp.mlp_layers(analytic.init(gen(6))["uv"]["mlp"]) == [
+    assert tmlp.mlp_layers(analytic.init(gen(6), device=CPU)["uv"]["mlp"]) == [
         128] + [70] * 8 + [5]
+
+
+@pytest.mark.parametrize("init", [
+    lambda gen: tplate.build_model().init(gen),
+    lambda gen: tplate.build_model(bc="analytic", fourier=8).init(gen),
+    lambda gen: tmlp.init_mlp(gen, [3, 4, 5]),
+], ids=["net_bc", "analytic_fourier", "mlp"])
+def test_model_init_defaults_to_gpu(init):
+    """Like ``plate_hole.build``, ``init`` places parameters on the GPU
+    unless the CPU is asked for; without a GPU that raises rather than
+    carrying on quietly on the CPU."""
+    gen = torch.Generator().manual_seed(7)
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in tree_leaves(init(gen)))
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            init(gen)
 
 
 def test_save_checkpoint_round_trip(tmp_path):
     path = str(tmp_path / "sub" / "state.ckpt")
-    params = tplate.build_model().init(torch.Generator().manual_seed(1))
+    params = tplate.build_model().init(torch.Generator().manual_seed(1),
+                                       device=CPU)
     state = tadam.Adam(LR).init(params)
     tckpt.save_checkpoint(path, {"params": params, "opt_state": state,
                                  "phase": "uv", "iters": np.int32(7)})

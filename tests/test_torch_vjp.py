@@ -217,16 +217,25 @@ def test_backward_wrappers_reject_bad_arguments():
             {"uv": params, "dist": params, "part": params}, x, cot, order=3)
 
 
-def test_native_builds_one_library_per_source():
-    assert sorted(_native.SOURCES) == ["fused_jet", "fused_jet_vjp"]
-    paths = {name: _native.library_path(name) for name in _native.SOURCES}
-    assert paths["fused_jet"] == _native.library_path()
-    for name, path in paths.items():
-        assert path.parent == _native.BUILD_DIR
-        assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
+def test_native_builds_one_library_of_both_sources(tmp_path, monkeypatch):
+    assert [p.name for p in _native.SOURCES] == ["fused_jet.cu",
+                                                 "fused_jet_vjp.cu"]
+    path = _native.library_path()
+    assert path.parent == _native.BUILD_DIR
+    assert path.name.startswith("libfused_jet_") and path.suffix == ".so"
     for header in _native.HEADERS:
         assert header.exists()
+    # The name changes with either source.
+    for i in range(len(_native.SOURCES)):
+        copies = [tmp_path / f"{i}_{p.name}" for p in _native.SOURCES]
+        for src, dst in zip(_native.SOURCES, copies):
+            dst.write_bytes(src.read_bytes())
+        copies[i].write_bytes(copies[i].read_bytes() + b"\n")
+        monkeypatch.setattr(_native, "SOURCES", tuple(copies))
+        assert _native.library_path() != path
     # The launchers' argument lists match the C signatures' arity.
-    sig = _native._SIGNATURES["fused_jet_vjp"]
+    sig = _native.SIGNATURES
+    assert len(sig["fused_mlp_jet_launch"]) == 11
+    assert len(sig["fused_composite_jet_launch"]) == 17
     assert len(sig["fused_mlp_jet_bwd_launch"]) == 16
     assert len(sig["fused_composite_jet_bwd_launch"]) == 21
