@@ -29,12 +29,15 @@ def make_loss_fn(model, spec: LossSpec, material: Material) -> Callable:
 
 def value_and_grad(fn: Callable, params, *, has_aux: bool = False):
     """(value, grads) of a scalar ``fn(params)``, or ((value, aux), grads)
-    with ``has_aux``; grads has the layout of ``params``.  Values come back
-    detached."""
+    with ``has_aux``; grads has the layout of ``params``, and a leaf that
+    ``fn`` does not reach gets zeros of its shape and dtype, as in
+    ``jax.value_and_grad``.  Values come back detached."""
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     out = fn(live)
     loss, aux = out if has_aux else (out, None)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    grads = iter(torch.autograd.grad(loss, tree_leaves(live),
+                                     allow_unused=True,
+                                     materialize_grads=True))
     gtree = tree_map(lambda t: next(grads), live)
     loss = loss.detach()
     if not has_aux:

@@ -198,3 +198,40 @@ def test_treepath_matches_jax():
     got = ttreepath.path_set(tree, "uv.mlp", [9])
     assert got["uv"]["B"] == 1 and tree["uv"]["mlp"] == [2, 3]
     assert got["dist"] is tree["dist"]
+
+
+@pytest.mark.parametrize("has_aux", [False, True])
+def test_value_and_grad_zeros_for_unreached_leaf(has_aux):
+    """A leaf the loss never reaches gets zeros of its shape and dtype, as
+    from ``jax.value_and_grad``; the reached leaves' gradients agree."""
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    rng = np.random.default_rng(41)
+    tree = {"a": rng.standard_normal((3, 4)), "b": rng.standard_normal(5),
+            "c": [rng.standard_normal(2)]}
+
+    def jfn(q):
+        loss = (q["a"] ** 2).sum() + jnp.sin(q["c"][0]).sum()
+        return (loss, {"half": 0.5 * loss}) if has_aux else loss
+
+    def tfn(q):
+        loss = (q["a"] ** 2).sum() + torch.sin(q["c"][0]).sum()
+        return (loss, {"half": 0.5 * loss}) if has_aux else loss
+
+    jout, jgrads = jax.value_and_grad(jfn, has_aux=has_aux)(
+        jax.tree.map(jnp.asarray, tree))
+    tparams = {"a": torch.as_tensor(tree["a"]), "b": torch.as_tensor(tree["b"]),
+               "c": [torch.as_tensor(tree["c"][0])]}
+    tout, tgrads = value_and_grad(tfn, tparams, has_aux=has_aux)
+    if has_aux:
+        (jloss, jaux), (tloss, taux) = jout, tout
+        assert float(taux["half"]) == pytest.approx(float(jaux["half"]),
+                                                    rel=REL)
+    else:
+        jloss, tloss = jout, tout
+    assert float(tloss) == pytest.approx(float(jloss), rel=REL)
+    assert tgrads["b"].dtype == F64 and tgrads["b"].shape == (5,)
+    assert torch.equal(tgrads["b"], torch.zeros(5, dtype=F64))
+    for jl, tl in zip(jax.tree.leaves(jgrads), tree_leaves(tgrads)):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=REL,
+                                   atol=0)
