@@ -22,7 +22,7 @@
 // fan_out) FLOPs (about 0.3 MFLOP for the plate nets at S = 4) against 12 to
 // 24 bytes of input and 100 bytes of output, so the f32 CUDA-core rate is the
 // roofline.  The design keeps every operand of the FMAs on chip: one block
-// owns a tile of TILE points, holds the activations of all S streams of the
+// owns a tile of T points, holds the activations of all S streams of the
 // tile in shared memory (two ping-pong buffers plus the seed), and stages
 // each layer's weights into shared memory before the layer runs.  A thread
 // computes one output neuron for PG consecutive points of every stream, so
@@ -33,27 +33,31 @@
 // true widths.
 //
 // Shared-memory layout: a buffer of width W holds W rows of length RS =
-// S * TILE + 4, element [k * RS + s * TILE + p] being input feature k of
-// stream s at point p of the tile.  The 4-float pad spreads the float4
-// stores of neighbouring neurons over all banks.
+// S * T + 4, element [k * RS + s * T + p] being input feature k of stream s
+// at point p of the tile.  The 4-float pad spreads the float4 stores of
+// neighbouring neurons over all banks.
+//
+// The tile is chosen at launch: the largest of 32, 16 and 8 points whose
+// buffers fit in shared memory.  The plate nets take 32; wider nets, such
+// as a 140-wide Fourier net, a smaller tile.  T is a template parameter, so
+// each tile compiles to the same code a fixed tile would.
 //
 // The launchers take device pointers, sizes and a cudaStream_t, launch on
 // that stream without synchronising, and return cudaGetLastError().  They
 // are instantiated for 3 or 4 input coordinates (2D or 3D plus time), order
 // 1 or 2, and nets of at most MAX_LAYERS layers; anything else, or a net too
-// wide for shared memory, returns cudaErrorInvalidValue.
+// wide for shared memory even at T = 8, returns cudaErrorInvalidValue.
 
 #include "jet_common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;        // points per block
 constexpr int PG = 4;           // points per thread item (one float4)
 
 // Layer recurrence of one net over the tile held in `x` (width dims[0]).
 // Hidden layers ping-pong between p0 and p1; the head writes `fin`
 // (width dims[L]).  All buffers use row stride rs.
-template <int S, bool DTT>
+template <int S, bool DTT, int TILE>
 __device__ void run_net(const Net& net, const float* x, float* p0, float* p1,
                         float* ws, float* bs, float* fin, int rs) {
   constexpr int NT = S - 1 - (DTT ? 1 : 0);  // tangent streams
@@ -121,7 +125,7 @@ __device__ void run_net(const Net& net, const float* x, float* p0, float* p1,
   __syncthreads();
 }
 
-template <int S, bool DTT>
+template <int S, bool DTT, int TILE>
 __global__ void mlp_jet_kernel(const float* __restrict__ seed_f,
                                const float* __restrict__ seed_d,
                                const float* __restrict__ seed_tt, int n,
@@ -158,7 +162,7 @@ __global__ void mlp_jet_kernel(const float* __restrict__ seed_f,
     x[k * rs + s * TILE + p] = v;
   }
 
-  run_net<S, DTT>(net, x, p0, p1, ws, bs, fin, rs);
+  run_net<S, DTT, TILE>(net, x, p0, p1, ws, bs, fin, rs);
 
   for (int i = threadIdx.x; i < S * TILE * c; i += blockDim.x) {
     const int ch = i % c;
@@ -171,7 +175,7 @@ __global__ void mlp_jet_kernel(const float* __restrict__ seed_f,
   }
 }
 
-template <int S, bool DTT>
+template <int S, bool DTT, int TILE>
 __global__ void composite_jet_kernel(const float* __restrict__ xg, int n,
                                      int a, Norm norm, Net nu, Net nd, Net np,
                                      int hid, int wmax, float* __restrict__ out,
@@ -205,9 +209,9 @@ __global__ void composite_jet_kernel(const float* __restrict__ xg, int n,
     x[k * rs + s * TILE + p] = v;
   }
 
-  run_net<S, DTT>(nu, x, p0, p1, ws, bs, fu, rs);
-  run_net<S, DTT>(nd, x, p0, p1, ws, bs, fd, rs);
-  run_net<S, DTT>(np, x, p0, p1, ws, bs, fp, rs);
+  run_net<S, DTT, TILE>(nu, x, p0, p1, ws, bs, fu, rs);
+  run_net<S, DTT, TILE>(nd, x, p0, p1, ws, bs, fd, rs);
+  run_net<S, DTT, TILE>(np, x, p0, p1, ws, bs, fp, rs);
 
   for (int i = threadIdx.x; i < TILE * c; i += blockDim.x) {
     const int ch = i % c;
@@ -235,30 +239,47 @@ __global__ void composite_jet_kernel(const float* __restrict__ xg, int n,
   }
 }
 
-int block_threads(const Net* nets, int count) {
+int block_threads(const Net* nets, int count, int tile) {
   int widest = 1;
   for (int i = 0; i < count; ++i)
     for (int l = 1; l <= nets[i].n_layers; ++l)
       widest = std::max(widest, nets[i].dims[l]);
-  return std::min(1024, std::max(64, round_up(widest * (TILE / PG), 32)));
+  return std::min(1024, std::max(64, round_up(widest * (tile / PG), 32)));
+}
+
+// Largest tile (32, 16 or 8 points) whose `rows` buffer rows of S * T + 4
+// floats and `extra` other floats fit in shared memory; 0 if none does.
+int pick_tile(int s, long rows, long extra, size_t* bytes) {
+  for (int t = 32; t >= 8; t /= 2) {
+    const size_t b =
+        static_cast<size_t>(rows * (static_cast<long>(s) * t + 4) + extra) *
+        sizeof(float);
+    if (b <= static_cast<size_t>(MAX_SMEM)) {
+      *bytes = b;
+      return t;
+    }
+  }
+  return 0;
 }
 
 template <int S, bool DTT>
 int launch_mlp(const float* sf, const float* sd, const float* stt, int n,
                const Net& net, float* out, cudaStream_t stream) {
-  const int rs = S * TILE + 4;
   int hid = 0, wmax = 0, bmax = 0;
   net_sizes(net, &hid, &wmax, &bmax);
   const int c = net.dims[net.n_layers];
-  const size_t floats = static_cast<size_t>(net.dims[0] + 2 * hid + c) * rs +
-                        round_up(wmax, 4) + bmax;
-  const size_t bytes = floats * sizeof(float);
-  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(mlp_jet_kernel<S, DTT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  size_t bytes = 0;
+  const int t = pick_tile(S, net.dims[0] + 2L * hid + c,
+                          round_up(wmax, 4) + bmax, &bytes);
+  if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int rs = S * t + 4;
+  const auto kern = t == 32   ? mlp_jet_kernel<S, DTT, 32>
+                    : t == 16 ? mlp_jet_kernel<S, DTT, 16>
+                              : mlp_jet_kernel<S, DTT, 8>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(bytes));
-  const int blocks = (n + TILE - 1) / TILE;
-  mlp_jet_kernel<S, DTT><<<blocks, block_threads(&net, 1), bytes, stream>>>(
+  const int blocks = (n + t - 1) / t;
+  kern<<<blocks, block_threads(&net, 1, t), bytes, stream>>>(
       sf, sd, stt, n, net, hid, wmax, out, rs);
   return static_cast<int>(cudaGetLastError());
 }
@@ -266,21 +287,22 @@ int launch_mlp(const float* sf, const float* sd, const float* stt, int n,
 template <int S, bool DTT>
 int launch_composite(const float* x, int n, int a, const Norm& norm,
                      const Net* nets, float* out, cudaStream_t stream) {
-  const int rs = S * TILE + 4;
   int hid = 0, wmax = 0, bmax = 0;
   for (int i = 0; i < 3; ++i) net_sizes(nets[i], &hid, &wmax, &bmax);
   const int c = nets[0].dims[nets[0].n_layers];
-  const size_t floats = static_cast<size_t>(a + 2 * hid + 3 * c) * rs +
-                        round_up(wmax, 4) + bmax;
-  const size_t bytes = floats * sizeof(float);
-  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(composite_jet_kernel<S, DTT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  size_t bytes = 0;
+  const int t = pick_tile(S, a + 2L * hid + 3L * c, round_up(wmax, 4) + bmax,
+                          &bytes);
+  if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int rs = S * t + 4;
+  const auto kern = t == 32   ? composite_jet_kernel<S, DTT, 32>
+                    : t == 16 ? composite_jet_kernel<S, DTT, 16>
+                              : composite_jet_kernel<S, DTT, 8>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(bytes));
-  const int blocks = (n + TILE - 1) / TILE;
-  composite_jet_kernel<S, DTT>
-      <<<blocks, block_threads(nets, 3), bytes, stream>>>(
-          x, n, a, norm, nets[0], nets[1], nets[2], hid, wmax, out, rs);
+  const int blocks = (n + t - 1) / t;
+  kern<<<blocks, block_threads(nets, 3, t), bytes, stream>>>(
+      x, n, a, norm, nets[0], nets[1], nets[2], hid, wmax, out, rs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -259,3 +259,29 @@ def test_emulated_forward_kernels_match_plain(lib, order):
         want = tfj.fused_composite_jet_reference(_f64(comp), x.double(),
                                                  order=order, lb=lb, ub=ub)
         _close(out, tfj.stack_jet(want))
+
+
+def test_emulated_forward_kernel_fits_a_wide_net(lib):
+    """B1 at the wave-confined Fourier widths (128 -> 140 x 6 -> 7, order
+    1), whose buffers do not fit in shared memory at 32 points: the launch
+    takes a smaller tile and still matches the plain version on a ragged n."""
+    rng = np.random.default_rng(33)
+    n, a, e = 37, 3, 128
+    params = _mlp(rng, [e] + [140] * 6 + [7])
+    packed, dims = pack_params(params, CPU)
+    floats_at_32 = ((e + 2 * 140 + 7) * (4 * 32 + 4)
+                    + 140 * 140 + 140)
+    assert 4 * floats_at_32 > 232448     # so 32 points cannot be the tile
+    h0 = torch.as_tensor(rng.uniform(-1, 1, (n, e)), dtype=torch.float32)
+    d = torch.as_tensor(rng.standard_normal((a, n, e)), dtype=torch.float32)
+    out = torch.empty(1 + a, n, 7)
+    assert lib.fused_mlp_jet_launch(
+        h0.data_ptr(), d.data_ptr(), None, n, a, 1, packed.data_ptr(),
+        _int_array(dims), len(params), out.data_ptr(), None) == 0
+    want = tfj.fused_seed_jet_reference(_f64(params), h0.double(), d.double())
+    _close(out, tfj.stack_jet(want))
+    wider = _mlp(rng, [e, 400, 400, 7])
+    packed, dims = pack_params(wider, CPU)
+    assert lib.fused_mlp_jet_launch(     # too wide even at 8 points
+        h0.data_ptr(), d.data_ptr(), None, n, a, 1, packed.data_ptr(),
+        _int_array(dims), len(wider), out.data_ptr(), None) != 0
