@@ -1,12 +1,13 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
 The sources (``fused_jet.cu``: the forward jets; ``fused_jet_vjp.cu``: their
-backward) have a plain C interface and are compiled by one ``nvcc`` call
-into one shared library, loaded with ``ctypes``; no PyTorch header is
-involved, which keeps a build to seconds.  The library is built at first
-use into ``pinn_elastodynamics_torch/_build/`` under a name that carries a
-hash of the sources, the shared header and the flags, so unchanged sources
-reuse it.  A build compiles to a private temporary name and is moved into
+backward) have a plain C interface.  Each is compiled by its own ``nvcc -c``,
+all started together, and one more ``nvcc`` links the objects into one
+shared library, loaded with ``ctypes``; no PyTorch header is involved, which
+keeps a build to seconds.  The library is built at first use into
+``pinn_elastodynamics_torch/_build/`` under a name that carries a hash of
+the sources, the shared header and the flags, so unchanged sources reuse it.
+A build compiles to private temporary names and moves the library into
 place with ``os.replace``, so concurrent builds never see a partial file and
 no lock file is needed.  Nothing falls back: a failed build or load raises
 with the compiler's output.
@@ -29,7 +30,7 @@ HEADERS = (CSRC / "jet_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 BUILD_TIMEOUT_S = 300
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
@@ -44,14 +45,20 @@ SIGNATURES = {
     "fused_composite_jet_launch": [
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P],
     # seed_f, seed_d, seed_tt, cot, n, n_tangents, order, packed, dims,
-    # n_layers, full_dx, max_blocks, partial, grad, dseed, stream
+    # n_layers, full_dx, max_blocks, partial, grad, dseed, workspace, stream
     "fused_mlp_jet_bwd_launch": [
-        _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     # x, n, a, order, lb, ub, (packed, dims, n_layers) x 3, cot, max_blocks,
     # partial, grad, dx, stream
     "fused_composite_jet_bwd_launch": [
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I,
         _P, _P, _P, _P],
+}
+
+# Size queries: name -> (argument types, result type).
+QUERIES = {
+    # n_tangents, order, dims, n_layers -> workspace floats per block, or -1
+    "fused_mlp_jet_bwd_workspace": ([_I, _I, _P, _I], ctypes.c_longlong),
 }
 
 _lock = threading.Lock()
@@ -78,23 +85,48 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfused_jet_{digest.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (command, process); raise with the first failure's
+    output after all have ended."""
+    failed = None
+    for cmd, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            err = f"timed out after {BUILD_TIMEOUT_S} s\n{err}"
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                      f"{err}{out}")
+    if failed:
+        raise RuntimeError(failed)
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def build() -> Path:
     """Compile the library unless a build of its exact sources exists."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = lib.with_name(f"{lib.stem}.{tag}.tmp")
+    objs = [lib.with_name(f"{lib.stem}.{src.stem}.{tag}.o") for src in SOURCES]
+    nvcc = _nvcc()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+        _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+              for src, obj in zip(SOURCES, objs)])
+        _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)])])
         os.replace(tmp, lib)
     finally:
-        tmp.unlink(missing_ok=True)
+        for path in (tmp, *objs):
+            path.unlink(missing_ok=True)
     return lib
 
 
@@ -105,6 +137,10 @@ def bind(path) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     lib.fused_jet_error_string.argtypes = [ctypes.c_int]
     lib.fused_jet_error_string.restype = ctypes.c_char_p
     return lib

@@ -373,78 +373,6 @@ int widest(const Net& net) {
 
 template <int S, bool DTT>
 __global__ void __launch_bounds__(THREADS, 1)
-mlp_jet_bwd_kernel(const float* __restrict__ seed_f,
-                   const float* __restrict__ seed_d,
-                   const float* __restrict__ seed_tt,
-                   const float* __restrict__ cot, int n, Net net, Tile tl,
-                   int cmax, int wmax, float* __restrict__ partial,
-                   int n_params, int full_dx, float* __restrict__ dseed) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int e = net.dims[0];
-  const int c_out = net.dims[net.n_layers];
-  const int rs = tl.rs;
-  float* seed = smem;
-  float* hidden = seed + e * rs;
-  float* c1 = hidden + hidden_rows(net) * rs;
-  float* c2 = c1 + cmax * rs;
-  float* ws = c2 + cmax * rs;
-  float* bs = ws + round_up(wmax, 4);
-  float* act[MAX_LAYERS];
-  layer_inputs(net, seed, hidden, rs, act);
-  float* g = partial + static_cast<size_t>(blockIdx.x) * n_params;
-
-  const int tiles = (n + tl.T - 1) / tl.T;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const bool first = tile == static_cast<int>(blockIdx.x);
-    const int n0 = tile * tl.T;
-    const int nvalid = min(tl.T, n - n0);
-    __syncthreads();  // the previous tile is done with shared memory
-    for (int i = threadIdx.x; i < S * tl.T * e; i += blockDim.x) {
-      const int k = i % e;
-      const int p = (i / e) % tl.T;
-      const int s = i / (e * tl.T);
-      float v = 0.0f;
-      if (p < nvalid) {
-        const size_t pt = static_cast<size_t>(n0 + p) * e + k;
-        if (s == 0)
-          v = seed_f[pt];
-        else if (DTT && s == S - 1)
-          v = seed_tt[pt];
-        else
-          v = seed_d[static_cast<size_t>(s - 1) * n * e + pt];
-      }
-      seed[k * rs + s * tl.T + p] = v;
-    }
-    for (int i = threadIdx.x; i < S * tl.T * c_out; i += blockDim.x) {
-      const int ch = i % c_out;
-      const int p = (i / c_out) % tl.T;
-      const int s = i / (c_out * tl.T);
-      float v = 0.0f;
-      if (p < nvalid)
-        v = cot[(static_cast<size_t>(s) * n + n0 + p) * c_out + ch];
-      c1[ch * rs + s * tl.T + p] = v;
-    }
-
-    remat_net<S, DTT>(net, act, ws, bs, tl);
-    float* r1 = c1;
-    float* r2 = c2;
-    reverse_net<S, DTT>(net, act, &r1, &r2, ws, bs, g, first, tl);
-
-    const int srows = full_dx ? S : 1;
-    for (int i = threadIdx.x; i < srows * tl.T * e; i += blockDim.x) {
-      const int k = i % e;
-      const int p = (i / e) % tl.T;
-      const int s = i / (e * tl.T);
-      if (p < nvalid)
-        dseed[(static_cast<size_t>(s) * n + n0 + p) * e + k] =
-            r1[k * rs + s * tl.T + p];
-    }
-  }
-}
-
-template <int S, bool DTT>
-__global__ void __launch_bounds__(THREADS, 1)
 composite_jet_bwd_kernel(const float* __restrict__ xg, int n, int a,
                          Norm norm, Net nu, Net nd, Net np,
                          const float* __restrict__ cot, Tile tl, int cmax,
@@ -574,6 +502,498 @@ composite_jet_bwd_kernel(const float* __restrict__ xg, int n, int a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide-tile design of mlp_jet_bwd_kernel (B2, B3b).
+//
+// A tile is 32 points (16 or 8 where 32 does not fit), and shared memory
+// holds only the layers in flight.  The remat writes every hidden layer's
+// output act[m] (m = 1 .. L-1, all S streams, rows of RS = S * T + 4 floats
+// as above) to a per-block workspace in global memory, which stays in L2;
+// the seed act[0] is not saved, since it is the kernel's input.  Three row
+// buffers take the activations and cotangents in turn: act[m] lives in
+// buffer slot(m), and when the reverse sweep is done with it, the same
+// buffer receives act[m]'s cotangent.  The head's output cotangent is the
+// cotangent of "act[L]".  So at reverse layer l the input act[l] is in
+// slot(l), the output cotangent in slot(l + 1), and slot(l - 1) is free:
+// while layer l runs, act[l - 1] is copied into it from the workspace (or
+// from the seed) with cp.async, and layer l - 1's weights into the second
+// of two weight buffers.  The input cotangent overwrites act[l] in place
+// once the weight gradient has read it; layer 0 writes the seed cotangent
+// straight to dseed.  The value row h of a layer's output, which the
+// reverse epilogue needs, is read from the workspace.
+//
+// Products are register blocked: an item computes FB output features for P
+// points of every stream (FB * P * S accumulators), so each float4 of
+// activations it loads from shared memory (shared by the lanes of a warp,
+// which differ in the feature) feeds FB * 4 FMAs; the weight gradient
+// blocks KB rows by JB columns.  The block has as many threads as a hidden
+// layer has items (288 at 70 features and 32 points), up to 512.
+namespace wide {
+
+constexpr int P = 4;     // points per item (one float4)
+constexpr int FB = 2;    // output features per product item
+constexpr int KB = 5;    // weight-gradient rows per item
+constexpr int JB = 4;    // weight-gradient columns per item
+constexpr int MAX_THREADS = 512;
+
+// Shared-memory and workspace layout of one launch (floats).
+struct Layout {
+  int T;          // points per tile
+  int rs;         // row stride, S * T + 4
+  int buf[3];     // offsets of the three row buffers
+  int wbuf[2];    // offsets of the weight buffers; equal with one buffer
+  int threads;
+  long ws_floats;  // workspace per block
+};
+
+// The row buffer of act[m] in a net of L layers.
+__host__ __device__ inline int slot(int m, int L) {
+  return ((m + 1 - L) % 3 + 3) % 3;
+}
+
+// Layer l's W (fi x fo) then b, at round_up(fi * fo, 4), into w.
+__device__ void stage_weights(const Net& net, int l, float* w) {
+  const int n_w = net.dims[l] * net.dims[l + 1];
+  float* b = w + round_up(n_w, 4);
+  for (int i = threadIdx.x; i < n_w; i += blockDim.x)
+    copy_async4(w + i, net.w[l] + i);
+  for (int i = threadIdx.x; i < net.dims[l + 1]; i += blockDim.x)
+    copy_async4(b + i, net.b[l] + i);
+}
+
+// The seed streams of points n0 .. n0 + nvalid - 1 into rows of width e;
+// zeros past the last point.
+template <int S, bool DTT, int T>
+__device__ void gather_seed(const float* seed_f, const float* seed_d,
+                            const float* seed_tt, int n, int n0, int nvalid,
+                            int e, int rs, float* dst) {
+  for (int i = threadIdx.x; i < S * T * e; i += blockDim.x) {
+    const int k = i % e;
+    const int p = (i / e) % T;
+    const int s = i / (e * T);
+    float* d = dst + k * rs + s * T + p;
+    if (p >= nvalid) {
+      *d = 0.0f;
+      continue;
+    }
+    const size_t pt = static_cast<size_t>(n0 + p) * e + k;
+    const float* src =
+        s == 0                ? seed_f + pt
+        : (DTT && s == S - 1) ? seed_tt + pt
+                              : seed_d + static_cast<size_t>(s - 1) * n * e + pt;
+    copy_async4(d, src);
+  }
+}
+
+// The output cotangent (S, n, c) of the tile into rows of width c.
+template <int S, int T>
+__device__ void gather_cot(const float* cot, int n, int n0, int nvalid,
+                           int c, int rs, float* dst) {
+  for (int i = threadIdx.x; i < S * T * c; i += blockDim.x) {
+    const int ch = i % c;
+    const int p = (i / c) % T;
+    const int s = i / (c * T);
+    float* d = dst + ch * rs + s * T + p;
+    if (p < nvalid)
+      copy_async4(d, cot + (static_cast<size_t>(s) * n + n0 + p) * c + ch);
+    else
+      *d = 0.0f;
+  }
+}
+
+// `floats` (a multiple of 4) contiguous floats from the workspace.
+__device__ void copy_rows(float* dst, const float* src, int floats) {
+  for (int i = 4 * threadIdx.x; i < floats; i += 4 * blockDim.x)
+    copy_async16(dst + i, src + i);
+}
+
+// Start layer l: make its weights resident, wait for every copy in flight,
+// and, with two weight buffers, start copying layer `next`'s weights.
+// `held` tracks which layer each buffer holds (the same in every thread).
+__device__ const float* begin_layer(const Net& net, int l, int next,
+                                    const Layout& lay, float* smem,
+                                    int* held) {
+  const bool two = lay.wbuf[0] != lay.wbuf[1];
+  const int b = two ? (l & 1) : 0;
+  if (held[b] != l) {
+    __syncthreads();  // every reader of the buffer's layer is done
+    stage_weights(net, l, smem + lay.wbuf[b]);
+    held[b] = l;
+  }
+  copy_async_commit();
+  copy_async_wait();
+  __syncthreads();
+  if (two && next >= 0 && held[next & 1] != next) {
+    stage_weights(net, next, smem + lay.wbuf[next & 1]);
+    held[next & 1] = next;
+  }
+  return smem + lay.wbuf[b];
+}
+
+// Remat of hidden layer l: out = layer(in) into shared memory and into the
+// workspace (out_g).
+template <int S, bool DTT, int T>
+__device__ void forward_layer(const float* in, int fi, int fo,
+                              const float* ws, float* out, float* out_g,
+                              int rs) {
+  constexpr int NT = S - 1 - (DTT ? 1 : 0);
+  const float* bs = ws + round_up(fi * fo, 4);
+  const int groups = (fo + FB - 1) / FB;
+  const int items = groups * (T / P);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int q0 = (it / groups) * P;
+    int jc[FB];
+#pragma unroll
+    for (int m = 0; m < FB; ++m)
+      jc[m] = min(it % groups + m * groups, fo - 1);  // clamped; not stored
+    float acc[FB][S][P];
+#pragma unroll
+    for (int m = 0; m < FB; ++m)
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int q = 0; q < P; ++q) acc[m][s][q] = 0.0f;
+    const float* row = in + q0;
+#pragma unroll 2
+    for (int k = 0; k < fi; ++k, row += rs) {
+      float w[FB];
+#pragma unroll
+      for (int m = 0; m < FB; ++m) w[m] = ws[k * fo + jc[m]];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float4 a = *reinterpret_cast<const float4*>(row + s * T);
+#pragma unroll
+        for (int m = 0; m < FB; ++m) {
+          acc[m][s][0] = fmaf(a.x, w[m], acc[m][s][0]);
+          acc[m][s][1] = fmaf(a.y, w[m], acc[m][s][1]);
+          acc[m][s][2] = fmaf(a.z, w[m], acc[m][s][2]);
+          acc[m][s][3] = fmaf(a.w, w[m], acc[m][s][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < FB; ++m) {
+      const int j = it % groups + m * groups;
+      if (j >= fo) continue;
+      const float bj = bs[j];
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const float h = tanhf(acc[m][0][q] + bj);
+        const float g = 1.0f - h * h;
+        if (DTT) {
+          const float zt = acc[m][NT][q];
+          acc[m][S - 1][q] = g * acc[m][S - 1][q] - 2.0f * h * g * (zt * zt);
+        }
+#pragma unroll
+        for (int s = 1; s <= NT; ++s) acc[m][s][q] *= g;
+        acc[m][0][q] = h;
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float4 v = make_float4(acc[m][s][0], acc[m][s][1],
+                                     acc[m][s][2], acc[m][s][3]);
+        const int off = j * rs + s * T + q0;
+        *reinterpret_cast<float4*>(out + off) = v;
+        *reinterpret_cast<float4*>(out_g + off) = v;
+      }
+    }
+  }
+}
+
+// Reverse of a hidden layer's tanh-jet epilogue, in place on c (width fo);
+// z of the non-value streams is recomputed from s_in, h read from h_g
+// (the layer's saved output in the workspace).
+template <int S, bool DTT, int T>
+__device__ void reverse_epilogue(float* c, const float* s_in,
+                                 const float* h_g, int fi, int fo,
+                                 const float* ws, int rs) {
+  constexpr int NT = S - 1 - (DTT ? 1 : 0);
+  const int groups = (fo + FB - 1) / FB;
+  const int items = groups * (T / P);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int q0 = (it / groups) * P;
+    int jc[FB];
+    float4 h4[FB];
+#pragma unroll
+    for (int m = 0; m < FB; ++m) {
+      jc[m] = min(it % groups + m * groups, fo - 1);
+      h4[m] = load_cg(reinterpret_cast<const float4*>(h_g + jc[m] * rs + q0));
+    }
+    float z[FB][S][P];  // z[.][0] unused: the value stream needs no recompute
+#pragma unroll
+    for (int m = 0; m < FB; ++m)
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int q = 0; q < P; ++q) z[m][s][q] = 0.0f;
+    const float* row = s_in + q0;
+#pragma unroll 2
+    for (int k = 0; k < fi; ++k, row += rs) {
+      float w[FB];
+#pragma unroll
+      for (int m = 0; m < FB; ++m) w[m] = ws[k * fo + jc[m]];
+#pragma unroll
+      for (int s = 1; s < S; ++s) {
+        const float4 a = *reinterpret_cast<const float4*>(row + s * T);
+#pragma unroll
+        for (int m = 0; m < FB; ++m) {
+          z[m][s][0] = fmaf(a.x, w[m], z[m][s][0]);
+          z[m][s][1] = fmaf(a.y, w[m], z[m][s][1]);
+          z[m][s][2] = fmaf(a.z, w[m], z[m][s][2]);
+          z[m][s][3] = fmaf(a.w, w[m], z[m][s][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < FB; ++m) {
+      const int j = it % groups + m * groups;
+      if (j >= fo) continue;
+      float* col = c + j * rs + q0;
+      const float hv[P] = {h4[m].x, h4[m].y, h4[m].z, h4[m].w};
+      float cv[S][P];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float4 v = *reinterpret_cast<const float4*>(col + s * T);
+        cv[s][0] = v.x;
+        cv[s][1] = v.y;
+        cv[s][2] = v.z;
+        cv[s][3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const float h = hv[q];
+        const float g = 1.0f - h * h;
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 1; t <= NT; ++t) acc += cv[t][q] * z[m][t][q];
+        float chh = cv[0][q] - 2.0f * h * acc;
+        float ct[S];
+#pragma unroll
+        for (int t = 1; t <= NT; ++t) ct[t] = g * cv[t][q];
+        if (DTT) {
+          const float zt = z[m][NT][q];
+          const float ztt = z[m][S - 1][q];
+          const float ctt = cv[S - 1][q];
+          chh += ctt * (-2.0f * h * ztt - 2.0f * (1.0f - 3.0f * h * h) * (zt * zt));
+          ct[NT] += ctt * (-4.0f * h * g * zt);
+          ct[S - 1] = g * ctt;
+        }
+        ct[0] = g * chh;
+#pragma unroll
+        for (int s = 0; s < S; ++s) cv[s][q] = ct[s];
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        *reinterpret_cast<float4*>(col + s * T) =
+            make_float4(cv[s][0], cv[s][1], cv[s][2], cv[s][3]);
+    }
+  }
+}
+
+// The tile's dW = s_in^T c over every stream and db = the value rows of c,
+// stored into (first tile of the block) or added to the block's partial.
+// An item owns KB consecutive rows k and JB columns j strided by the
+// number of column groups, so the lanes of a warp share the rows of s_in
+// and read neighbouring rows of c.
+template <int S, int T>
+__device__ void accumulate_grads(const float* s_in, int fi, const float* c,
+                                 int fo, float* gw, float* gb, bool first,
+                                 int rs) {
+  const int jgroups = (fo + JB - 1) / JB;
+  const int items = (fi + KB - 1) / KB * jgroups;
+  for (int e = threadIdx.x; e < items; e += blockDim.x) {
+    const int jg = e % jgroups;
+    const int k0 = (e / jgroups) * KB;
+    const float* a[KB];
+    const float* b[JB];
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) a[kk] = s_in + min(k0 + kk, fi - 1) * rs;
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj)
+      b[jj] = c + min(jg + jj * jgroups, fo - 1) * rs;
+    float acc[KB][JB];
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj) acc[kk][jj] = 0.0f;
+    for (int r = 0; r < S * T; r += 4) {
+      float4 y[JB];
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+        y[jj] = *reinterpret_cast<const float4*>(b[jj] + r);
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        const float4 x = *reinterpret_cast<const float4*>(a[kk] + r);
+#pragma unroll
+        for (int jj = 0; jj < JB; ++jj) {
+          acc[kk][jj] = fmaf(x.x, y[jj].x, acc[kk][jj]);
+          acc[kk][jj] = fmaf(x.y, y[jj].y, acc[kk][jj]);
+          acc[kk][jj] = fmaf(x.z, y[jj].z, acc[kk][jj]);
+          acc[kk][jj] = fmaf(x.w, y[jj].w, acc[kk][jj]);
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj) {
+        const int k = k0 + kk;
+        const int j = jg + jj * jgroups;
+        if (k < fi && j < fo) {
+          float* w = gw + k * fo + j;
+          *w = first ? acc[kk][jj] : *w + acc[kk][jj];
+        }
+      }
+  }
+  for (int j = threadIdx.x; j < fo; j += blockDim.x) {
+    float acc = 0.0f;
+    for (int p = 0; p < T; ++p) acc += c[j * rs + p];
+    gb[j] = first ? acc : gb[j] + acc;
+  }
+}
+
+// c_in = c W^T, the cotangent of the layer's input (width fi), into the
+// rows `out`; or, with out null, the first `srows` streams of the valid
+// points straight into the seed cotangent dseed (S, n, fi).
+template <int S, int T>
+__device__ void backward_product(const float* c, int fo, const float* ws,
+                                 int fi, float* out, int rs, float* dseed,
+                                 int n, int n0, int nvalid, int srows) {
+  const int groups = (fi + FB - 1) / FB;
+  const int items = groups * (T / P);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int q0 = (it / groups) * P;
+    const float* wr[FB];
+#pragma unroll
+    for (int m = 0; m < FB; ++m)
+      wr[m] = ws + min(it % groups + m * groups, fi - 1) * fo;
+    float acc[FB][S][P];
+#pragma unroll
+    for (int m = 0; m < FB; ++m)
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int q = 0; q < P; ++q) acc[m][s][q] = 0.0f;
+    const float* row = c + q0;
+#pragma unroll 2
+    for (int j = 0; j < fo; ++j, row += rs) {
+      float w[FB];
+#pragma unroll
+      for (int m = 0; m < FB; ++m) w[m] = wr[m][j];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float4 a = *reinterpret_cast<const float4*>(row + s * T);
+#pragma unroll
+        for (int m = 0; m < FB; ++m) {
+          acc[m][s][0] = fmaf(a.x, w[m], acc[m][s][0]);
+          acc[m][s][1] = fmaf(a.y, w[m], acc[m][s][1]);
+          acc[m][s][2] = fmaf(a.z, w[m], acc[m][s][2]);
+          acc[m][s][3] = fmaf(a.w, w[m], acc[m][s][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < FB; ++m) {
+      const int k = it % groups + m * groups;
+      if (k >= fi) continue;
+      if (out != nullptr) {
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          *reinterpret_cast<float4*>(out + k * rs + s * T + q0) =
+              make_float4(acc[m][s][0], acc[m][s][1], acc[m][s][2],
+                          acc[m][s][3]);
+        continue;
+      }
+      for (int s = 0; s < srows; ++s)
+#pragma unroll
+        for (int q = 0; q < P; ++q)
+          if (q0 + q < nvalid)
+            dseed[(static_cast<size_t>(s) * n + n0 + q0 + q) * fi + k] =
+                acc[m][s][q];
+    }
+  }
+}
+
+}  // namespace wide
+
+template <int S, bool DTT, int T>
+__global__ void __launch_bounds__(wide::MAX_THREADS, 1)
+mlp_jet_bwd_kernel(const float* __restrict__ seed_f,
+                   const float* __restrict__ seed_d,
+                   const float* __restrict__ seed_tt,
+                   const float* __restrict__ cot, int n, Net net,
+                   wide::Layout lay, float* __restrict__ partial,
+                   int n_params, int full_dx, float* __restrict__ dseed,
+                   float* workspace) {
+  using namespace wide;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int L = net.n_layers;
+  const int e = net.dims[0];
+  const int rs = lay.rs;
+  float* g = partial + static_cast<size_t>(blockIdx.x) * n_params;
+  float* wact[MAX_LAYERS];  // act[m], m >= 1, in this block's workspace
+  float* wp = workspace + static_cast<size_t>(blockIdx.x) * lay.ws_floats;
+  for (int m = 1; m < L; ++m) {
+    wact[m] = wp;
+    wp += static_cast<size_t>(net.dims[m]) * rs;
+  }
+  auto rows = [&](int m) { return smem + lay.buf[slot(m, L)]; };
+  int held[2] = {-1, -1};
+
+  const int tiles = (n + T - 1) / T;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const bool first = tile == static_cast<int>(blockIdx.x);
+    const int n0 = tile * T;
+    const int nvalid = min(T, n - n0);
+    __syncthreads();  // the previous tile is done with shared memory
+    gather_seed<S, DTT, T>(seed_f, seed_d, seed_tt, n, n0, nvalid, e, rs,
+                           rows(0));
+    if (L == 1) gather_cot<S, T>(cot, n, n0, nvalid, net.dims[1], rs, rows(1));
+
+    for (int l = 0; l + 1 < L; ++l) {
+      const float* ws = begin_layer(net, l, l + 1, lay, smem, held);
+      if (l + 2 == L)  // slot(L) is free once layer L - 3 has run
+        gather_cot<S, T>(cot, n, n0, nvalid, net.dims[L], rs, rows(L));
+      copy_async_commit();
+      forward_layer<S, DTT, T>(rows(l), net.dims[l], net.dims[l + 1], ws,
+                               rows(l + 1), wact[l + 1], rs);
+    }
+
+    for (int l = L - 1; l >= 0; --l) {
+      const int fi = net.dims[l];
+      const int fo = net.dims[l + 1];
+      const float* ws = begin_layer(net, l, l - 1, lay, smem, held);
+      if (l >= 1 && l + 1 < L) {  // act[L - 2] is still resident
+        if (l == 1)
+          gather_seed<S, DTT, T>(seed_f, seed_d, seed_tt, n, n0, nvalid, e,
+                                 rs, rows(0));
+        else
+          copy_rows(rows(l - 1), wact[l - 1], net.dims[l - 1] * rs);
+      }
+      copy_async_commit();
+      float* s_in = rows(l);
+      float* c = rows(l + 1);
+      if (l + 1 < L) {
+        reverse_epilogue<S, DTT, T>(c, s_in, wact[l + 1], fi, fo, ws, rs);
+        __syncthreads();
+      }
+      int w_off, b_off;
+      packed_offsets(net, l, &w_off, &b_off);
+      accumulate_grads<S, T>(s_in, fi, c, fo, g + w_off, g + b_off, first,
+                             rs);
+      if (l > 0) {
+        __syncthreads();  // the weight gradient is done with s_in
+        backward_product<S, T>(c, fo, ws, fi, s_in, rs, nullptr, n, n0,
+                               nvalid, 0);
+      } else {
+        backward_product<S, T>(c, fo, ws, fi, nullptr, rs, dseed, n, n0,
+                               nvalid, full_dx ? S : 1);
+      }
+    }
+  }
+}
+
 // grad[i] = sum over blocks b, in order, of partial[b][i].
 __global__ void reduce_partials(const float* __restrict__ partial, int blocks,
                                 int n_params, float* __restrict__ grad) {
@@ -615,28 +1035,73 @@ int grid_blocks(int n, int t, int max_blocks) {
   return std::max(1, std::min(tiles, max_blocks));
 }
 
+// The wide-tile layout of a net: row buffers sized by what each slot
+// holds, one or two weight buffers; returns the shared floats it needs.
+long wide_plan(const Net& net, int s, int t, bool two, wide::Layout* lay) {
+  const int L = net.n_layers;
+  lay->T = t;
+  lay->rs = s * t + 4;
+  int rows[3] = {0, 0, 0};
+  for (int m = 0; m <= L; ++m) {
+    int& r = rows[wide::slot(m, L)];
+    r = std::max(r, net.dims[m]);
+  }
+  long off = 0;
+  for (int b = 0; b < 3; ++b) {
+    lay->buf[b] = static_cast<int>(off);
+    off += static_cast<long>(rows[b]) * lay->rs;
+  }
+  long wsize[2] = {0, 0};
+  for (int l = 0; l < L; ++l) {
+    long& w = wsize[two ? (l & 1) : 0];
+    w = std::max(w, static_cast<long>(round_up(net.dims[l] * net.dims[l + 1], 4) +
+                                      round_up(net.dims[l + 1], 4)));
+  }
+  lay->wbuf[0] = static_cast<int>(off);
+  off += wsize[0];
+  lay->wbuf[1] = two ? static_cast<int>(off) : lay->wbuf[0];
+  off += wsize[1];
+  long hidden = 0;
+  for (int m = 1; m < L; ++m) hidden += net.dims[m];
+  lay->ws_floats = hidden * lay->rs;
+  // One item per FB features and P points of the widest hidden layer.
+  int widest_hidden = L == 1 ? std::max(net.dims[0], net.dims[1]) : 0;
+  for (int m = 1; m < L; ++m) widest_hidden = std::max(widest_hidden, net.dims[m]);
+  const int items = (widest_hidden + wide::FB - 1) / wide::FB * (t / wide::P);
+  lay->threads = std::min(wide::MAX_THREADS, std::max(64, round_up(items, 32)));
+  return off;
+}
+
+// The largest tile (32, 16 or 8 points) that fits, with two weight buffers
+// where they fit; returns the shared bytes, 0 if nothing fits.
+size_t wide_layout(const Net& net, int s, wide::Layout* lay) {
+  for (int t = 32; t >= 8; t /= 2)
+    for (int two = 1; two >= 0; --two) {
+      const size_t bytes = wide_plan(net, s, t, two == 1, lay) * sizeof(float);
+      if (bytes <= static_cast<size_t>(MAX_SMEM)) return bytes;
+    }
+  return 0;
+}
+
 template <int S, bool DTT>
 int launch_mlp_bwd(const float* sf, const float* sd, const float* stt,
                    const float* cot, int n, const Net& net, int full_dx,
                    int max_blocks, float* partial, float* grad, float* dseed,
-                   cudaStream_t stream) {
-  int hid = 0, wmax = 0, bmax = 0;
-  net_sizes(net, &hid, &wmax, &bmax);
-  const int cmax = widest(net);
-  const long rows = net.dims[0] + hidden_rows(net) + 2L * cmax;
-  size_t bytes = 0;
-  const int t = pick_tile(S, rows, round_up(wmax, 4) + round_up(bmax, 4),
-                          &bytes);
-  if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(mlp_jet_bwd_kernel<S, DTT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                   float* workspace, cudaStream_t stream) {
+  wide::Layout lay;
+  const size_t bytes = wide_layout(net, S, &lay);
+  if (bytes == 0 || workspace == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = lay.T == 32   ? mlp_jet_bwd_kernel<S, DTT, 32>
+                    : lay.T == 16 ? mlp_jet_bwd_kernel<S, DTT, 16>
+                                  : mlp_jet_bwd_kernel<S, DTT, 8>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(bytes));
-  const Tile tl{t, S * t + 4};
-  const int blocks = grid_blocks(n, t, max_blocks);
+  const int blocks = grid_blocks(n, lay.T, max_blocks);
   const int n_params = static_cast<int>(net_params(net));
-  mlp_jet_bwd_kernel<S, DTT><<<blocks, THREADS, bytes, stream>>>(
-      sf, sd, stt, cot, n, net, tl, cmax, wmax, partial, n_params,
-      full_dx, dseed);
+  kern<<<blocks, lay.threads, bytes, stream>>>(
+      sf, sd, stt, cot, n, net, lay, partial, n_params, full_dx, dseed,
+      workspace);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return launch_reduce(partial, blocks, n_params, grad, stream);
@@ -681,18 +1146,38 @@ int launch_composite_bwd(const float* x, int n, int a, const Norm& norm,
 
 extern "C" {
 
+// Floats of workspace that fused_mlp_jet_bwd_launch needs per block for a
+// net of these widths; -1 if the kernel does not take it.
+long long fused_mlp_jet_bwd_workspace(int n_tangents, int order,
+                                      const int* dims, int n_layers) {
+  if (n_tangents < 3 || n_tangents > 4 || order < 1 || order > 2 ||
+      n_layers < 1 || n_layers > MAX_LAYERS)
+    return -1;
+  Net net;  // widths only: the layout does not read the parameters
+  net.n_layers = n_layers;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1) return -1;
+    net.dims[l] = dims[l];
+  }
+  wide::Layout lay;
+  if (wide_layout(net, 1 + n_tangents + (order == 2 ? 1 : 0), &lay) == 0)
+    return -1;
+  return lay.ws_floats;
+}
+
 // seed_f: (n, E); seed_d: (A, n, E); seed_tt: (n, E) when order == 2; cot:
 // (S, n, C) with S = 1 + A (+1 for order 2); packed/dims/n_layers as for
 // fused_mlp_jet_launch; max_blocks: the most blocks to use (the SM count).
 // partial: max_blocks x P floats of scratch, P the
 // packed size; grad: P floats, the gradient in the packed layout; dseed:
-// (S, n, E) when full_dx, else the value rows (n, E).
+// (S, n, E) when full_dx, else the value rows (n, E); workspace: max_blocks
+// x fused_mlp_jet_bwd_workspace(...) floats of scratch.
 int fused_mlp_jet_bwd_launch(const float* seed_f, const float* seed_d,
                              const float* seed_tt, const float* cot, int n,
                              int n_tangents, int order, const float* packed,
                              const int* dims, int n_layers, int full_dx,
                              int max_blocks, float* partial, float* grad,
-                             float* dseed, void* stream) {
+                             float* dseed, float* workspace, void* stream) {
   Net net;
   if (!make_net(packed, dims, n_layers, &net) || n < 0 || max_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -702,10 +1187,10 @@ int fused_mlp_jet_bwd_launch(const float* seed_f, const float* seed_d,
         grad, 0, net_params(net) * sizeof(float), st));
   const int key = n_tangents * 2 + (order == 2 ? 1 : 0);
   switch (key) {
-    case 6: return launch_mlp_bwd<4, false>(seed_f, seed_d, seed_tt, cot, n, net, full_dx, max_blocks, partial, grad, dseed, st);
-    case 7: return launch_mlp_bwd<5, true>(seed_f, seed_d, seed_tt, cot, n, net, full_dx, max_blocks, partial, grad, dseed, st);
-    case 8: return launch_mlp_bwd<5, false>(seed_f, seed_d, seed_tt, cot, n, net, full_dx, max_blocks, partial, grad, dseed, st);
-    case 9: return launch_mlp_bwd<6, true>(seed_f, seed_d, seed_tt, cot, n, net, full_dx, max_blocks, partial, grad, dseed, st);
+    case 6: return launch_mlp_bwd<4, false>(seed_f, seed_d, seed_tt, cot, n, net, full_dx, max_blocks, partial, grad, dseed, workspace, st);
+    case 7: return launch_mlp_bwd<5, true>(seed_f, seed_d, seed_tt, cot, n, net, full_dx, max_blocks, partial, grad, dseed, workspace, st);
+    case 8: return launch_mlp_bwd<5, false>(seed_f, seed_d, seed_tt, cot, n, net, full_dx, max_blocks, partial, grad, dseed, workspace, st);
+    case 9: return launch_mlp_bwd<6, true>(seed_f, seed_d, seed_tt, cot, n, net, full_dx, max_blocks, partial, grad, dseed, workspace, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

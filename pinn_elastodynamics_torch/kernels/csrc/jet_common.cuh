@@ -35,6 +35,37 @@ __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
+// Hopper primitives, each behind a small wrapper so that the sources also
+// build for the CPU emulation (whose stub cuda_runtime.h gives plain
+// versions: a copy for each asynchronous copy, no-ops for the waits).
+#ifdef __CUDACC__
+// Asynchronous copy of 4 bytes (cached in L1) or 16 bytes (L2 only) from
+// global to shared memory; lands after copy_async_wait().
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait for every copy this thread issued; a __syncthreads() after it makes
+// all threads' copies visible to the block.
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// Load that bypasses L1: reads what this block wrote to global memory
+// earlier in the kernel.
+__device__ __forceinline__ float4 load_cg(const float4* p) { return __ldcg(p); }
+#endif
+
 bool make_net(const float* packed, const int* dims, int n_layers, Net* net) {
   if (n_layers < 1 || n_layers > MAX_LAYERS) return false;
   net->n_layers = n_layers;

@@ -195,20 +195,27 @@ def _launch_mlp_bwd(params: Params, h0, d, dtt, cot, full_dx: bool, key: str):
     order = 2 if dtt is not None else 1
     s = 1 + a + (order - 1)
     _check_cot(cot, s, n, dims[-1])
+    lib = _native.library()
+    per_block = lib.fused_mlp_jet_bwd_workspace(a, order, _int_array(dims),
+                                                len(params))
+    if per_block < 0:
+        raise ValueError(f"the backward kernel does not take a net of widths "
+                         f"{dims} at order {order}")
     max_blocks = _max_blocks(device)
     partial = torch.empty((max_blocks, packed.numel()), dtype=torch.float32,
                           device=device)
+    workspace = torch.empty(max(1, max_blocks * per_block),
+                            dtype=torch.float32, device=device)
     grad = torch.empty_like(packed)
     dseed = torch.empty((s, n, e) if full_dx else (n, e), dtype=torch.float32,
                         device=device)
-    lib = _native.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fused_mlp_jet_bwd_launch(
             h0.data_ptr(), d.data_ptr(), None if dtt is None else dtt.data_ptr(),
             cot.data_ptr(), n, a, order, packed.data_ptr(), _int_array(dims),
             len(params), int(full_dx), max_blocks, partial.data_ptr(),
-            grad.data_ptr(), dseed.data_ptr(), stream)
+            grad.data_ptr(), dseed.data_ptr(), workspace.data_ptr(), stream)
     _native.check(err, key)
     LAUNCHES[key] += 1
     return _unpack_grads(grad, dims), dseed

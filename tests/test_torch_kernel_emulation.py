@@ -67,6 +67,13 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   return cudaSuccess;
 }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+// One thread runs every phase in order, so an asynchronous copy may land at
+// once and the waits have nothing to wait for.
+inline void copy_async4(float* dst, const float* src) { *dst = *src; }
+inline void copy_async16(float* dst, const float* src) { memcpy(dst, src, 16); }
+inline void copy_async_commit() {}
+inline void copy_async_wait() {}
+inline float4 load_cg(const float4* p) { return *p; }
 template <class K, class... A>
 void emu_launch(int grid, int, size_t bytes, cudaStream_t, K k, A... args) {
   memset(emu_smem, 0xff, bytes);  // no stale zeros: shared memory is garbage
@@ -140,15 +147,20 @@ def _mlp_bwd(lib, params, h0, d, dtt, cot, full_dx, max_blocks):
     packed, dims = pack_params(params, CPU)
     n, e = h0.shape
     s = cot.shape[0]
+    order = 2 if dtt is not None else 1
+    per_block = lib.fused_mlp_jet_bwd_workspace(d.shape[0], order,
+                                                _int_array(dims), len(params))
+    assert per_block >= 0
     partial = torch.empty(max_blocks, packed.numel())
+    workspace = torch.full((max(1, max_blocks * per_block),), float("nan"))
     grad = torch.empty_like(packed)
     dseed = torch.empty((s, n, e) if full_dx else (n, e))
     err = lib.fused_mlp_jet_bwd_launch(
         h0.data_ptr(), d.data_ptr(), None if dtt is None else dtt.data_ptr(),
-        cot.data_ptr(), n, d.shape[0], 2 if dtt is not None else 1,
+        cot.data_ptr(), n, d.shape[0], order,
         packed.data_ptr(), _int_array(dims), len(params), int(full_dx),
         max_blocks, partial.data_ptr(), grad.data_ptr(), dseed.data_ptr(),
-        None)
+        workspace.data_ptr(), None)
     assert err == 0
     return tvjp._unpack_grads(grad, dims), dseed
 
@@ -181,6 +193,64 @@ def test_emulated_mlp_backward_matches_plain(lib, a, order):
                          full_dx, max_blocks)
         assert all(torch.equal(x, y) for x, y in
                    zip(tree_leaves(again), tree_leaves((grads, dseed))))
+
+
+# (a, order, widths, n, full_dx, max_blocks): the plate nets of B2 and B3b,
+# the wave-confined Fourier net (a 16-point tile with one weight buffer), a
+# 3D order-2 net, and nets of 1, 2 and 4 layers (every rotation of the row
+# buffers); ragged n, several tiles per block and several blocks.
+WIDE_CASES = {
+    "b2_plate": (3, 2, [3] + [70] * 8 + [5], 77, False, 2),
+    "b3b_fourier": (3, 2, [128] + [70] * 8 + [5], 45, True, 2),
+    "b3b_wave_confined": (3, 1, [128] + [140] * 6 + [7], 37, True, 3),
+    "b2_3d": (4, 2, [4] + [100] * 6 + [3], 20, False, 1),
+    "one_layer": (3, 1, [3, 5], 70, False, 2),
+    "two_layers": (4, 1, [12, 7, 5], 40, True, 3),
+    "four_layers": (4, 2, [9, 11, 6, 8, 4], 66, True, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_emulated_wide_tile_backward_matches_plain(lib, case):
+    """B2/B3b at widths that pick each tile and buffer layout, on a ragged
+    n that is not a multiple of the tile, with several tiles per block and
+    several blocks (so each block's workspace offset is used)."""
+    a, order, dims, n, full_dx, max_blocks = WIDE_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    s = 1 + a + order - 1
+    e = dims[0]
+    params = _mlp(rng, dims)
+    h0 = torch.as_tensor(rng.uniform(-1, 1, (n, e)), dtype=torch.float32)
+    d = torch.as_tensor(rng.standard_normal((a, n, e)), dtype=torch.float32)
+    dtt = (torch.as_tensor(rng.standard_normal((n, e)), dtype=torch.float32)
+           if order == 2 else None)
+    cot = torch.as_tensor(rng.standard_normal((s, n, dims[-1])),
+                          dtype=torch.float32)
+    grads, dseed = _mlp_bwd(lib, params, h0, d, dtt, cot, full_dx, max_blocks)
+    want, want_seed = tvjp.mlp_jet_bwd_reference(
+        _f64(params), h0.double(), d.double(),
+        None if dtt is None else dtt.double(), cot.double())
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        _close(g, w)
+    _close(dseed, want_seed if full_dx else want_seed[0])
+    again = _mlp_bwd(lib, params, h0, d, dtt, cot, full_dx, max_blocks)
+    assert all(torch.equal(x, y) for x, y in
+               zip(tree_leaves(again), tree_leaves((grads, dseed))))
+
+
+def test_emulated_backward_workspace_size(lib):
+    """The per-block workspace holds every hidden layer's output, all S
+    streams, in rows of S * T + 4 floats: T = 32 at the plate widths, 16 for
+    the wave-confined Fourier net; -1 for a net no tile fits."""
+    def query(a, order, dims):
+        return lib.fused_mlp_jet_bwd_workspace(a, order, _int_array(dims),
+                                               len(dims) - 1)
+
+    assert query(3, 2, [128] + [70] * 8 + [5]) == 8 * 70 * (5 * 32 + 4)
+    assert query(3, 2, [3] + [70] * 8 + [5]) == 8 * 70 * (5 * 32 + 4)
+    assert query(3, 1, [128] + [140] * 6 + [7]) == 6 * 140 * (4 * 16 + 4)
+    assert query(3, 1, [3, 2000, 5]) == -1
+    assert query(2, 1, [3, 20, 5]) == -1
 
 
 @pytest.mark.parametrize("order", [1, 2])

@@ -237,5 +237,6 @@ def test_native_builds_one_library_of_both_sources(tmp_path, monkeypatch):
     sig = _native.SIGNATURES
     assert len(sig["fused_mlp_jet_launch"]) == 11
     assert len(sig["fused_composite_jet_launch"]) == 17
-    assert len(sig["fused_mlp_jet_bwd_launch"]) == 16
+    assert len(sig["fused_mlp_jet_bwd_launch"]) == 17   # + workspace
+    assert len(_native.QUERIES["fused_mlp_jet_bwd_workspace"][0]) == 4
     assert len(sig["fused_composite_jet_bwd_launch"]) == 21
