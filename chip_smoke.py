@@ -4,15 +4,16 @@
     python3 chip_smoke.py
 
 Builds the fused-jet CUDA kernels from ``pinn_elastodynamics_torch/kernels/
-csrc/`` (one ``nvcc`` call for both sources, first use only), then, in
-order:
+csrc/`` (one ``nvcc -c`` per source, started together, then one link; first
+use only), then, in order:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds or loads the kernel libraries and prints the build seconds;
 3. holds each forward kernel to its plain PyTorch version run in float64 on
    the card (B1 seeded at the Fourier64 plate widths, B1 raw-coordinate with
    lb/ub, B4 at the net-BC plate widths; order 1 and 2; N = 65,536 and
-   1,000);
+   1,000), and B1 at the wave-confined Fourier widths (128 -> 140 x 6 -> 7,
+   order 1, N = 1,000), which take a tile smaller than 32 points;
 4. serves both quarter-plate models at full width (random weights from a
    numpy seed, through ``params_from_jax``) behind ``FieldServer`` and checks
    every answer against a direct evaluation, the direct evaluation against
@@ -22,7 +23,8 @@ order:
 6. holds each backward kernel (B2 raw and with lb/ub, B3b seeded at the
    Fourier64 widths, B5 at the net-BC widths) to its plain float64 version
    on the card, with random cotangents, at N = 65,536, 1,000 and the
-   collocation bank's 103,711 (a partial last tile), order 1 and 2, and
+   collocation bank's 103,711 (a partial last tile), order 1 and 2, and B2
+   and B3b at the wave-confined Fourier widths (order 1, N = 1,000), and
    requires two runs to give bitwise-equal results;
 7. trains the three plate configurations at ``scale=1.0`` (net-BC,
    analytic-BC + Fourier64 with ``trainable="uv.mlp"``, analytic-BC with a
@@ -67,6 +69,9 @@ TOL_LOSS = 1e-5   # relative, kernel path f32 against eager f64
 ADAM_STEPS = 20
 ADAM_LR = 1e-3
 N_TRAIN = 103_711  # collocation points of plate_hole.build(scale=1.0)
+# The wave-confined hard-BC + Fourier64 net (cases/wave_confined.py), whose
+# buffers do not fit in shared memory at the forward kernel's 32 points.
+WAVE_DIMS = [2 * 64] + [140] * 6 + [7]
 
 
 def log(msg: str) -> None:
@@ -152,6 +157,11 @@ def flops_per_point(dims, n_streams):
 
 def time_cuda(torch, fn, warmup=3, runs=20):
     """Median milliseconds of ``fn`` by CUDA events."""
+    return float(np.median(cuda_times(torch, fn, warmup, runs)))
+
+
+def cuda_times(torch, fn, warmup=3, runs=20):
+    """Milliseconds of each of ``runs`` calls of ``fn`` by CUDA events."""
     for _ in range(warmup):
         fn()
     times = []
@@ -163,7 +173,7 @@ def time_cuda(torch, fn, warmup=3, runs=20):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
 
 
 def device_breakdown(torch, fn, top=4):
@@ -230,7 +240,7 @@ def check_grads(label, got, ref, limit=TOL_GRAD):
     return worst_scaled, worst_abs
 
 
-def backward_checks(torch, dev, rng, trees, fourier):
+def backward_checks(torch, dev, rng, trees, fourier, wave):
     """Phase 6: each backward kernel against its plain float64 version,
     twice for bitwise determinism.  Returns the largest absolute error per
     kernel."""
@@ -287,6 +297,22 @@ def backward_checks(torch, dev, rng, trees, fourier):
                 lambda: fv.fused_composite_jet_bwd(net_p, x, cot, order=order),
                 lambda: fv.composite_jet_bwd_reference(net_p64, x64, cot64,
                                                        order=order))
+
+    # The wave-confined Fourier widths: a 16-point tile, one weight buffer.
+    wrng = np.random.default_rng(SEED + 3)
+    x = spacetime(wrng, N_RAGGED, torch, dev)
+    h0, d, _ = fourier._embed_jet(ana_p["uv"], x, 1)
+    cot = torch.as_tensor(wrng.standard_normal((4, N_RAGGED, WAVE_DIMS[-1])),
+                          dtype=torch.float32, device=dev)
+    wave64 = to64(wave)
+    ref = fv.mlp_jet_bwd_reference(wave64, h0.double(), d.double(), None,
+                                   cot.double())
+    run("fused_mlp_jet_bwd", f"B2 wave-confined widths n={N_RAGGED} order=1",
+        lambda: fv.fused_mlp_jet_bwd(wave, h0, d, None, cot, full_dx=False),
+        lambda: (ref[0], ref[1][0]))
+    run("fused_seed_jet_bwd", f"B3b wave-confined widths n={N_RAGGED} order=1",
+        lambda: fv.fused_mlp_jet_bwd(wave, h0, d, None, cot, full_dx=True),
+        lambda: ref)
     return max_err
 
 
@@ -440,7 +466,7 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} GFLOP/s")
+            f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pinn_elastodynamics_torch/kernels/csrc/fused_jet_vjp.cu",
@@ -455,10 +481,15 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
         case, fn, sub = t["case"], t["fn"], t["sub"]
         eager_case = dataclasses.replace(case, model=eager_copy(case.model))
         efn, esub, _ = _phase_loss_fn(eager_case, t["phase"], t["params"])
-        ms = time_cuda(torch, lambda: value_and_grad(fn, sub), runs=5)
-        eager_ms = time_cuda(torch, lambda: value_and_grad(efn, esub), runs=5)
-        log(f"  value+grad {name}: kernel path {ms:.3f} ms, eager f32 "
-            f"{eager_ms:.3f} ms (CUDA events, median of 5)")
+        # In turns, so that a slow spell of the host falls on both paths.
+        ker, eag = [], []
+        for _ in range(3):
+            ker += cuda_times(torch, lambda: value_and_grad(fn, sub), runs=5)
+            eag += cuda_times(torch, lambda: value_and_grad(efn, esub), runs=5)
+        log(f"  value+grad {name}: kernel path {np.median(ker):.3f} ms "
+            f"[{min(ker):.3f}, {max(ker):.3f}], eager f32 {np.median(eag):.3f} "
+            f"ms [{min(eag):.3f}, {max(eag):.3f}] (CUDA events, median and "
+            f"range of 15, in three turns)")
         wall, busy, rows = device_breakdown(
             torch, lambda: value_and_grad(fn, sub), top=6)
         log(f"  profiled value+grad {name}: wall {wall:.4f} s, device busy "
@@ -531,6 +562,8 @@ def main() -> int:
     net_p = params_from_jax(net_tree, device=dev)
     ana_p = params_from_jax(ana_tree, device=dev)
     raw_p = params_from_jax(mlp_tree(rng, uv_dims), device=dev)
+    wave_p = params_from_jax(
+        mlp_tree(np.random.default_rng(SEED + 1), WAVE_DIMS), device=dev)
     net_p64, ana_p64, raw_p64 = to64(net_p), to64(ana_p), to64(raw_p)
     spec = FieldSpec(ndim=2, formulation=SECOND_ORDER)
     fourier = FourierMLPFieldModel(
@@ -568,6 +601,13 @@ def main() -> int:
                 max_err["fused_composite_jet"] = max(
                     max_err["fused_composite_jet"], err)
                 del h64, d64, dtt64
+        x = spacetime(np.random.default_rng(SEED + 2), N_RAGGED, torch, dev)
+        h, d, _ = fourier._embed_jet(ana_p["uv"], x, 1)
+        ker = fv.fused_seed_jet_vjp(wave_p, h, d)
+        ref = fj.fused_seed_jet_reference(to64(wave_p), h.double(), d.double())
+        err = check_jet(f"B1 wave-confined widths n={N_RAGGED} order=1", ker,
+                        ref)
+        max_err["fused_mlp_jet"] = max(max_err["fused_mlp_jet"], err)
     torch.cuda.synchronize()
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 
@@ -676,7 +716,7 @@ def main() -> int:
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
             log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} GFLOP/s")
+                f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": "pinn_elastodynamics_torch/kernels/csrc/fused_jet.cu",
@@ -709,7 +749,8 @@ def main() -> int:
 
     # 6. Backward kernels against their plain versions (float64 on the card).
     t0 = time.perf_counter()
-    bwd_err = backward_checks(torch, dev, rng, (net_p, ana_p, raw_p), fourier)
+    bwd_err = backward_checks(torch, dev, rng, (net_p, ana_p, raw_p), fourier,
+                              wave_p)
     torch.cuda.synchronize()
     log(f"phase backward kernels: {time.perf_counter() - t0:.2f} s")
 
