@@ -247,21 +247,6 @@ int block_threads(const Net* nets, int count, int tile) {
   return std::min(1024, std::max(64, round_up(widest * (tile / PG), 32)));
 }
 
-// Largest tile (32, 16 or 8 points) whose `rows` buffer rows of S * T + 4
-// floats and `extra` other floats fit in shared memory; 0 if none does.
-int pick_tile(int s, long rows, long extra, size_t* bytes) {
-  for (int t = 32; t >= 8; t /= 2) {
-    const size_t b =
-        static_cast<size_t>(rows * (static_cast<long>(s) * t + 4) + extra) *
-        sizeof(float);
-    if (b <= static_cast<size_t>(MAX_SMEM)) {
-      *bytes = b;
-      return t;
-    }
-  }
-  return 0;
-}
-
 template <int S, bool DTT>
 int launch_mlp(const float* sf, const float* sd, const float* stt, int n,
                const Net& net, float* out, cudaStream_t stream) {
@@ -270,7 +255,7 @@ int launch_mlp(const float* sf, const float* sd, const float* stt, int n,
   const int c = net.dims[net.n_layers];
   size_t bytes = 0;
   const int t = pick_tile(S, net.dims[0] + 2L * hid + c,
-                          round_up(wmax, 4) + bmax, &bytes);
+                          round_up(wmax, 4) + bmax, 32, 8, &bytes);
   if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int rs = S * t + 4;
   const auto kern = t == 32   ? mlp_jet_kernel<S, DTT, 32>
@@ -292,7 +277,7 @@ int launch_composite(const float* x, int n, int a, const Norm& norm,
   const int c = nets[0].dims[nets[0].n_layers];
   size_t bytes = 0;
   const int t = pick_tile(S, a + 2L * hid + 3L * c, round_up(wmax, 4) + bmax,
-                          &bytes);
+                          32, 8, &bytes);
   if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int rs = S * t + 4;
   const auto kern = t == 32   ? composite_jet_kernel<S, DTT, 32>

@@ -47,32 +47,37 @@
 // synchronisation.  A second kernel sums the G partials in block order.  No
 // float atomics: two runs give bitwise-equal gradients.
 //
-// The remat keeps every layer's input for all S streams of the tile in
-// shared memory: a buffer of width W is W rows of RS = S * T + 4 floats,
-// element [k * RS + s * T + p] being feature k of stream s at point p.  At
-// the plate widths that is 563 (uv), 688 (Fourier tail) or 723 (three
-// composite nets) rows, so T = 8 points per tile (T = 4 where 8 does not
-// fit, as for 3D order 2 with a Fourier tail): 99 KB to 127 KB of
-// activations, 143 KB to 202 KB in all, one block per SM.  Matrix products
-// give one thread one output feature for PG = 4 points of every stream (the
-// forward kernels' item), so the tanh-jet epilogue and the reverse of it run
-// in registers; the z of the non-value streams is recomputed in the same
-// item that applies the reverse recurrence, so it is never stored.
+// Two tile designs.  mlp_jet_bwd_kernel uses the wide-tile design described
+// before it below: 32-point tiles (16 or 8 for wider nets), the remat's
+// saved activations in a per-block workspace in global memory (L2), three
+// row buffers and two weight buffers in shared memory filled by cp.async
+// while the previous layer runs, register-blocked products.
+// composite_jet_bwd_kernel still keeps every layer's input for all S
+// streams of the tile in shared memory: a buffer of width W is W rows of RS
+// = S * T + 4 floats, element [k * RS + s * T + p] being feature k of stream
+// s at point p.  For the three plate nets that is 723 rows, so T = 8 points
+// per tile (T = 4 where 8 does not fit).  Its products give one thread one
+// output feature for PG = 4 points of every stream (the forward kernels'
+// item), so the tanh-jet epilogue and the reverse of it run in registers.
+// In both, the z of the non-value streams is recomputed in the item that
+// applies the reverse recurrence, so it is never stored.
 //
 // The launchers take device pointers, sizes and a cudaStream_t, launch the
 // main kernel and the reduction on that stream without synchronising, and
 // return cudaGetLastError().  They are instantiated for 3 or 4 input
 // coordinates, order 1 or 2; anything else, or a net too wide for shared
-// memory, returns cudaErrorInvalidValue.
+// memory at the smallest tile, returns cudaErrorInvalidValue.
 
 #include "jet_common.cuh"
 
 namespace {
 
 constexpr int PG = 4;            // points per thread item (one float4)
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;     // composite_jet_bwd_kernel
 constexpr int REDUCE_THREADS = 256;
 
+// From here to composite_jet_bwd_kernel, apart from packed_offsets: the
+// 8-point design's helpers, which only that kernel uses.
 struct Tile {
   int T;       // points per tile
   int rs;      // row stride of a shared buffer, S * T + 4
@@ -517,7 +522,11 @@ composite_jet_bwd_kernel(const float* __restrict__ xg, int n, int a,
 // slot(l), the output cotangent in slot(l + 1), and slot(l - 1) is free:
 // while layer l runs, act[l - 1] is copied into it from the workspace (or
 // from the seed) with cp.async, and layer l - 1's weights into the second
-// of two weight buffers.  The input cotangent overwrites act[l] in place
+// of two weight buffers (a net too wide for two, such as a 140-wide one,
+// gets one, and each layer's weights are copied when the layer starts).
+// The remat overlaps the next layer's weights the same way.  The launcher
+// takes the largest tile that fits, with two weight buffers where they
+// fit.  The input cotangent overwrites act[l] in place
 // once the weight gradient has read it; layer 0 writes the seed cotangent
 // straight to dseed.  The value row h of a layer's output, which the
 // reverse epilogue needs, is read from the workspace.
@@ -1015,21 +1024,6 @@ int launch_reduce(const float* partial, int blocks, int n_params, float* grad,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Largest tile (8 or 4 points) whose buffers fit in shared memory; 0 if
-// none does.  `rows` counts the shared rows of width RS, `extra` the floats
-// outside them.
-int pick_tile(int s, long rows, long extra, size_t* bytes) {
-  for (int t = 8; t >= 4; t -= 4) {
-    const long rs = static_cast<long>(s) * t + 4;
-    const size_t b = static_cast<size_t>(rows * rs + extra) * sizeof(float);
-    if (b <= static_cast<size_t>(MAX_SMEM)) {
-      *bytes = b;
-      return t;
-    }
-  }
-  return 0;
-}
-
 int grid_blocks(int n, int t, int max_blocks) {
   const int tiles = (n + t - 1) / t;
   return std::max(1, std::min(tiles, max_blocks));
@@ -1125,7 +1119,7 @@ int launch_composite_bwd(const float* x, int n, int a, const Norm& norm,
   size_t bytes = 0;
   // ws, bs (cmax >= bmax) and the (a, T <= 8) seed-cotangent sum.
   const int t = pick_tile(S, rows, round_up(wmax, 4) + round_up(cmax, 4) +
-                                       a * 8, &bytes);
+                                       a * 8, 8, 4, &bytes);
   if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncSetAttribute(composite_jet_bwd_kernel<S, DTT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
