@@ -21,8 +21,9 @@ use only), then, in order:
 5. times each forward kernel and its plain version with CUDA events, and
    ``predict_fields`` of both models;
 6. holds each backward kernel (B2 raw and with lb/ub, B3b seeded at the
-   Fourier64 widths, B5 at the net-BC widths) to its plain float64 version
-   on the card, with random cotangents, at N = 65,536, 1,000 and the
+   Fourier64 widths, B5 at the net-BC widths raw and with lb/ub) to its
+   plain float64 version on the card, with random cotangents, at N =
+   65,536, 1,000 and the
    collocation bank's 103,711 (a partial last tile), order 1 and 2, and B2
    and B3b at the wave-confined Fourier widths (order 1, N = 1,000), and
    requires two runs to give bitwise-equal results;
@@ -293,10 +294,15 @@ def backward_checks(torch, dev, rng, trees, fourier, wave):
                                              cot, full_dx=True),
                 lambda: fv.mlp_jet_bwd_reference(ana_p64["uv"]["mlp"],
                                                  *seed64, cot64))
-            run("fused_composite_jet_bwd", f"B5 composite n={n} order={order}",
-                lambda: fv.fused_composite_jet_bwd(net_p, x, cot, order=order),
-                lambda: fv.composite_jet_bwd_reference(net_p64, x64, cot64,
-                                                       order=order))
+            for lb, ub in ((None, None), (plate_hole.LB, plate_hole.UB)):
+                run("fused_composite_jet_bwd",
+                    f"B5 composite {'lb/ub' if lb else 'raw'} n={n} "
+                    f"order={order}",
+                    lambda: fv.fused_composite_jet_bwd(net_p, x, cot,
+                                                       order=order, lb=lb,
+                                                       ub=ub),
+                    lambda: fv.composite_jet_bwd_reference(
+                        net_p64, x64, cot64, order=order, lb=lb, ub=ub))
 
     # The wave-confined Fourier widths: a 16-point tile, one weight buffer.
     wrng = np.random.default_rng(SEED + 3)

@@ -1,10 +1,10 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
 The sources (``fused_jet.cu``: the forward jets; ``fused_jet_vjp.cu``: their
-backward) have a plain C interface.  Each is compiled by its own ``nvcc -c``,
-all started together, and one more ``nvcc`` links the objects into one
-shared library, loaded with ``ctypes``; no PyTorch header is involved, which
-keeps a build to seconds.  The library is built at first use into
+backward) have a plain C interface.  Each is compiled by its own ``nvcc -c``
+(``-split-compile``: its kernels in parallel), all started together, and one
+more ``nvcc`` links the objects into one shared library, loaded with
+``ctypes``; no PyTorch header is involved.  The library is built at first use into
 ``pinn_elastodynamics_torch/_build/`` under a name that carries a hash of
 the sources, the shared header and the flags, so unchanged sources reuse it.
 A build compiles to private temporary names and moves the library into
@@ -32,6 +32,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
+# Compile step only: optimise a source's kernels in parallel on every core.
+# The machine code is the same as a serial compile's; the build is shorter.
+SPLIT_FLAGS = ("-split-compile=0",)
 BUILD_TIMEOUT_S = 300
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
@@ -49,16 +52,19 @@ SIGNATURES = {
     "fused_mlp_jet_bwd_launch": [
         _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     # x, n, a, order, lb, ub, (packed, dims, n_layers) x 3, cot, max_blocks,
-    # partial, grad, dx, stream
+    # partial, grad, dx, workspace, stream
     "fused_composite_jet_bwd_launch": [
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I,
-        _P, _P, _P, _P],
+        _P, _P, _P, _P, _P],
 }
 
 # Size queries: name -> (argument types, result type).
 QUERIES = {
     # n_tangents, order, dims, n_layers -> workspace floats per block, or -1
     "fused_mlp_jet_bwd_workspace": ([_I, _I, _P, _I], ctypes.c_longlong),
+    # a, order, (dims, n_layers) x 3 -> workspace floats per block, or -1
+    "fused_composite_jet_bwd_workspace": (
+        [_I, _I, _P, _I, _P, _I, _P, _I], ctypes.c_longlong),
 }
 
 _lock = threading.Lock()
@@ -81,7 +87,7 @@ def library_path() -> Path:
     digest = hashlib.sha256()
     for path in SOURCES + HEADERS:
         digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + SPLIT_FLAGS).encode())
     return BUILD_DIR / f"libfused_jet_{digest.hexdigest()[:16]}.so"
 
 
@@ -119,7 +125,8 @@ def build() -> Path:
     objs = [lib.with_name(f"{lib.stem}.{src.stem}.{tag}.o") for src in SOURCES]
     nvcc = _nvcc()
     try:
-        _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+        _run([_start([nvcc, *NVCC_FLAGS, *SPLIT_FLAGS, "-c", "-o", str(obj),
+                      str(src)])
               for src, obj in zip(SOURCES, objs)])
         _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                       *map(str, objs)])])

@@ -37,7 +37,7 @@
 // in the reverse sweep (2 (S - 1) sum over hidden layers), which saves
 // shared memory and is not work the function needs.
 //
-// Design.  The Pallas kernels zero dW/db at grid step 0 and accumulate into
+// Grid.  The Pallas kernels zero dW/db at grid step 0 and accumulate into
 // an output block that every step revisits, which is safe only because a
 // TPU grid runs in order.  Here a fixed number of blocks (at most one per
 // SM) each walk their tiles of T points in a fixed order (tile b, b + G,
@@ -47,20 +47,16 @@
 // synchronisation.  A second kernel sums the G partials in block order.  No
 // float atomics: two runs give bitwise-equal gradients.
 //
-// Two tile designs.  mlp_jet_bwd_kernel uses the wide-tile design described
-// before it below: 32-point tiles (16 or 8 for wider nets), the remat's
-// saved activations in a per-block workspace in global memory (L2), three
-// row buffers and two weight buffers in shared memory filled by cp.async
-// while the previous layer runs, register-blocked products.
-// composite_jet_bwd_kernel still keeps every layer's input for all S
-// streams of the tile in shared memory: a buffer of width W is W rows of RS
-// = S * T + 4 floats, element [k * RS + s * T + p] being feature k of stream
-// s at point p.  For the three plate nets that is 723 rows, so T = 8 points
-// per tile (T = 4 where 8 does not fit).  Its products give one thread one
-// output feature for PG = 4 points of every stream (the forward kernels'
-// item), so the tanh-jet epilogue and the reverse of it run in registers.
-// In both, the z of the non-value streams is recomputed in the item that
-// applies the reverse recurrence, so it is never stored.
+// Tile.  Both kernels run one net's sweep with the same device functions
+// (the wide-tile design, described before namespace wide below): 32-point
+// tiles (16 or 8 for wider nets), the remat's saved activations in a
+// per-block workspace in global memory (L2), three row buffers and two
+// weight buffers in shared memory filled by cp.async while the previous
+// layer runs, register-blocked products.  mlp_jet_bwd_kernel runs one net's
+// remat and reverse sweep per tile; composite_jet_bwd_kernel runs the three
+// nets in turn (the order is described before it), so its workspace is the
+// uv net's and its shared memory that of the widest net plus the combine's
+// five-row buffers.
 //
 // The launchers take device pointers, sizes and a cudaStream_t, launch the
 // main kernel and the reduction on that stream without synchronising, and
@@ -72,16 +68,7 @@
 
 namespace {
 
-constexpr int PG = 4;            // points per thread item (one float4)
-constexpr int THREADS = 256;     // composite_jet_bwd_kernel
 constexpr int REDUCE_THREADS = 256;
-
-// From here to composite_jet_bwd_kernel, apart from packed_offsets: the
-// 8-point design's helpers, which only that kernel uses.
-struct Tile {
-  int T;       // points per tile
-  int rs;      // row stride of a shared buffer, S * T + 4
-};
 
 // Offsets of layer l's W and b in the packed buffer.
 __device__ __forceinline__ void packed_offsets(const Net& net, int l,
@@ -92,444 +79,32 @@ __device__ __forceinline__ void packed_offsets(const Net& net, int l,
   *b_off = off + net.dims[l] * net.dims[l + 1];
 }
 
-// Copy layer l's weights and bias into shared memory.
-__device__ void stage(const Net& net, int l, float* ws, float* bs) {
-  __syncthreads();  // every reader of the previous contents is done
-  const int n_w = net.dims[l] * net.dims[l + 1];
-  for (int i = threadIdx.x; i < n_w; i += blockDim.x) ws[i] = net.w[l][i];
-  for (int i = threadIdx.x; i < net.dims[l + 1]; i += blockDim.x)
-    bs[i] = net.b[l][i];
-  __syncthreads();
-}
-
-// out = layer(in): the jet of a hidden tanh layer, or with `head` the
-// linear head (bias on the value rows only).
-template <int S, bool DTT>
-__device__ void forward_layer(const float* in, int fi, int fo,
-                              const float* ws, const float* bs, float* out,
-                              bool head, Tile tl) {
-  constexpr int NT = S - 1 - (DTT ? 1 : 0);
-  const int items = fo * (tl.T / PG);
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int j = it % fo;
-    const int q0 = (it / fo) * PG;
-    float acc[S][PG];
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int q = 0; q < PG; ++q) acc[s][q] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < fi; ++k) {
-      const float w = ws[k * fo + j];
-      const float* row = in + k * tl.rs + q0;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float4 a = *reinterpret_cast<const float4*>(row + s * tl.T);
-        acc[s][0] = fmaf(a.x, w, acc[s][0]);
-        acc[s][1] = fmaf(a.y, w, acc[s][1]);
-        acc[s][2] = fmaf(a.z, w, acc[s][2]);
-        acc[s][3] = fmaf(a.w, w, acc[s][3]);
-      }
-    }
-    const float bj = bs[j];
-#pragma unroll
-    for (int q = 0; q < PG; ++q) {
-      if (head) {
-        acc[0][q] += bj;
-      } else {
-        const float h = tanhf(acc[0][q] + bj);
-        const float g = 1.0f - h * h;
-        if (DTT) {
-          const float zt = acc[NT][q];
-          acc[S - 1][q] = g * acc[S - 1][q] - 2.0f * h * g * (zt * zt);
-        }
-#pragma unroll
-        for (int s = 1; s <= NT; ++s) acc[s][q] *= g;
-        acc[0][q] = h;
-      }
-    }
-    float* dst = out + j * tl.rs + q0;
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      *reinterpret_cast<float4*>(dst + s * tl.T) =
-          make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
-  }
-}
-
-// Reverse of one hidden layer's tanh-jet epilogue, in place: c holds the
-// cotangent of the layer's output (width fo) and receives [c'_0; c'_i;
-// c'_tt].  z of the non-value streams is recomputed from s_in; h is the
-// saved output's value row.
-template <int S, bool DTT>
-__device__ void reverse_epilogue(float* c, const float* s_in,
-                                 const float* s_out, int fi, int fo,
-                                 const float* ws, Tile tl) {
-  constexpr int NT = S - 1 - (DTT ? 1 : 0);
-  const int items = fo * (tl.T / PG);
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int j = it % fo;
-    const int q0 = (it / fo) * PG;
-    float z[S][PG];  // z[0] unused: the value stream needs no recompute
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int q = 0; q < PG; ++q) z[s][q] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < fi; ++k) {
-      const float w = ws[k * fo + j];
-      const float* row = s_in + k * tl.rs + q0;
-#pragma unroll
-      for (int s = 1; s < S; ++s) {
-        const float4 a = *reinterpret_cast<const float4*>(row + s * tl.T);
-        z[s][0] = fmaf(a.x, w, z[s][0]);
-        z[s][1] = fmaf(a.y, w, z[s][1]);
-        z[s][2] = fmaf(a.z, w, z[s][2]);
-        z[s][3] = fmaf(a.w, w, z[s][3]);
-      }
-    }
-    float* col = c + j * tl.rs + q0;
-    const float4 h4 = *reinterpret_cast<const float4*>(s_out + j * tl.rs + q0);
-    const float hv[PG] = {h4.x, h4.y, h4.z, h4.w};
-    float cv[S][PG];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float4 v = *reinterpret_cast<const float4*>(col + s * tl.T);
-      cv[s][0] = v.x;
-      cv[s][1] = v.y;
-      cv[s][2] = v.z;
-      cv[s][3] = v.w;
-    }
-#pragma unroll
-    for (int q = 0; q < PG; ++q) {
-      const float h = hv[q];
-      const float g = 1.0f - h * h;
-      float acc = 0.0f;
-#pragma unroll
-      for (int t = 1; t <= NT; ++t) acc += cv[t][q] * z[t][q];
-      float chh = cv[0][q] - 2.0f * h * acc;
-      float ct[S];
-#pragma unroll
-      for (int t = 1; t <= NT; ++t) ct[t] = g * cv[t][q];
-      if (DTT) {
-        const float zt = z[NT][q];
-        const float ztt = z[S - 1][q];
-        const float ctt = cv[S - 1][q];
-        chh += ctt * (-2.0f * h * ztt - 2.0f * (1.0f - 3.0f * h * h) * (zt * zt));
-        ct[NT] += ctt * (-4.0f * h * g * zt);
-        ct[S - 1] = g * ctt;
-      }
-      ct[0] = g * chh;
-#pragma unroll
-      for (int s = 0; s < S; ++s) cv[s][q] = ct[s];
-    }
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      *reinterpret_cast<float4*>(col + s * tl.T) =
-          make_float4(cv[s][0], cv[s][1], cv[s][2], cv[s][3]);
-  }
-}
-
-// c_in = c W^T: cotangent of the layer's input (width fi) from the stacked
-// cotangent c of its pre-activation (width fo).
-template <int S>
-__device__ void backward_product(const float* c, int fo, const float* ws,
-                                 int fi, float* out, Tile tl) {
-  const int items = fi * (tl.T / PG);
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int k = it % fi;
-    const int q0 = (it / fi) * PG;
-    float acc[S][PG];
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int q = 0; q < PG; ++q) acc[s][q] = 0.0f;
-    const float* wrow = ws + k * fo;
-#pragma unroll 4
-    for (int j = 0; j < fo; ++j) {
-      const float w = wrow[j];
-      const float* row = c + j * tl.rs + q0;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float4 a = *reinterpret_cast<const float4*>(row + s * tl.T);
-        acc[s][0] = fmaf(a.x, w, acc[s][0]);
-        acc[s][1] = fmaf(a.y, w, acc[s][1]);
-        acc[s][2] = fmaf(a.z, w, acc[s][2]);
-        acc[s][3] = fmaf(a.w, w, acc[s][3]);
-      }
-    }
-    float* dst = out + k * tl.rs + q0;
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      *reinterpret_cast<float4*>(dst + s * tl.T) =
-          make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
-  }
-}
-
-// The tile's dW = s_in^T c over every stream and db = the value rows of c,
-// stored into (first tile of the block) or added to the block's partial.
-// A thread owns KB consecutive rows k of one column j, so each float4 of c
-// it loads feeds KB dot products (the loads of s_in are shared by the lanes
-// of a warp, which differ in j).
-template <int S>
-__device__ void accumulate_grads(const float* s_in, int fi, const float* c,
-                                 int fo, float* gw, float* gb, bool first,
-                                 Tile tl) {
-  constexpr int KB = 4;
-  const int rows = S * tl.T;
-  const int items = (fi + KB - 1) / KB * fo;
-  for (int e = threadIdx.x; e < items; e += blockDim.x) {
-    const int j = e % fo;
-    const int k0 = (e / fo) * KB;
-    const float* b = c + j * tl.rs;
-    const float* a[KB];
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk)
-      a[kk] = s_in + min(k0 + kk, fi - 1) * tl.rs;  // clamped; not stored
-    float acc[KB];
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk) acc[kk] = 0.0f;
-#pragma unroll 2
-    for (int r = 0; r < rows; r += 4) {
-      const float4 y = *reinterpret_cast<const float4*>(b + r);
-#pragma unroll
-      for (int kk = 0; kk < KB; ++kk) {
-        const float4 x = *reinterpret_cast<const float4*>(a[kk] + r);
-        acc[kk] = fmaf(x.x, y.x, acc[kk]);
-        acc[kk] = fmaf(x.y, y.y, acc[kk]);
-        acc[kk] = fmaf(x.z, y.z, acc[kk]);
-        acc[kk] = fmaf(x.w, y.w, acc[kk]);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-      if (k0 + kk < fi) {
-        float* w = gw + (k0 + kk) * fo + j;
-        *w = first ? acc[kk] : *w + acc[kk];
-      }
-    }
-  }
-  for (int j = threadIdx.x; j < fo; j += blockDim.x) {
-    float acc = 0.0f;
-    for (int p = 0; p < tl.T; ++p) acc += c[j * tl.rs + p];
-    gb[j] = first ? acc : gb[j] + acc;
-  }
-}
-
-// Remat of a net's hidden layers: act[l + 1] = layer l (act[l]).
-template <int S, bool DTT>
-__device__ void remat_net(const Net& net, float* const* act, float* ws,
-                          float* bs, Tile tl) {
-  for (int l = 0; l + 1 < net.n_layers; ++l) {
-    stage(net, l, ws, bs);
-    forward_layer<S, DTT>(act[l], net.dims[l], net.dims[l + 1], ws, bs,
-                          act[l + 1], false, tl);
-  }
-}
-
-// Reverse sweep of one net from the output cotangent in *c1 (width of the
-// head), accumulating into the net's partial gradient `g`.  On return *c1
-// points at the seed cotangent (width dims[0]); *c2 is free.
-template <int S, bool DTT>
-__device__ void reverse_net(const Net& net, float* const* act, float** c1,
-                            float** c2, float* ws, float* bs, float* g,
-                            bool first, Tile tl) {
-  for (int l = net.n_layers - 1; l >= 0; --l) {
-    const int fi = net.dims[l];
-    const int fo = net.dims[l + 1];
-    stage(net, l, ws, bs);
-    if (l + 1 < net.n_layers) {
-      reverse_epilogue<S, DTT>(*c1, act[l], act[l + 1], fi, fo, ws, tl);
-      __syncthreads();
-    }
-    int w_off, b_off;
-    packed_offsets(net, l, &w_off, &b_off);
-    accumulate_grads<S>(act[l], fi, *c1, fo, g + w_off, g + b_off, first, tl);
-    backward_product<S>(*c1, fo, ws, fi, *c2, tl);
-    float* t = *c1;
-    *c1 = *c2;
-    *c2 = t;
-  }
-  __syncthreads();
-}
-
-// Shared-memory rows of a net's saved layer inputs, seed excluded.
-__host__ __device__ inline int hidden_rows(const Net& net) {
-  int r = 0;
-  for (int l = 1; l < net.n_layers; ++l) r += net.dims[l];
-  return r;
-}
-
-// Layer-input pointers of a net whose seed lives at `seed` and whose hidden
-// layers start at `base`.
-__device__ inline void layer_inputs(const Net& net, float* seed, float* base,
-                                    int rs, float** act) {
-  act[0] = seed;
-  for (int l = 1; l < net.n_layers; ++l) {
-    act[l] = base;
-    base += net.dims[l] * rs;
-  }
-}
-
-int widest(const Net& net) {
-  int w = 0;
-  for (int l = 0; l <= net.n_layers; ++l) w = std::max(w, net.dims[l]);
-  return w;
-}
-
-template <int S, bool DTT>
-__global__ void __launch_bounds__(THREADS, 1)
-composite_jet_bwd_kernel(const float* __restrict__ xg, int n, int a,
-                         Norm norm, Net nu, Net nd, Net np,
-                         const float* __restrict__ cot, Tile tl, int cmax,
-                         int wmax, float* __restrict__ partial, int n_params,
-                         float* __restrict__ dx) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int NT = S - 1 - (DTT ? 1 : 0);
-  const int c_out = nu.dims[nu.n_layers];
-  const int rs = tl.rs;
-  float* seed = smem;
-  float* hu = seed + a * rs;
-  float* hd = hu + hidden_rows(nu) * rs;
-  float* hp = hd + hidden_rows(nd) * rs;
-  float* fu = hp + hidden_rows(np) * rs;   // uv output jet
-  float* fd = fu + c_out * rs;             // dist output jet
-  float* cu = fd + c_out * rs;             // uv output cotangent
-  float* cd = cu + c_out * rs;             // dist output cotangent
-  float* c1 = cd + c_out * rs;
-  float* c2 = c1 + cmax * rs;
-  float* ws = c2 + cmax * rs;
-  float* bs = ws + round_up(wmax, 4);
-  float* dxs = bs + round_up(cmax, 4);     // (a, T) summed seed cotangent
-  float* act_u[MAX_LAYERS];
-  float* act_d[MAX_LAYERS];
-  float* act_p[MAX_LAYERS];
-  layer_inputs(nu, seed, hu, rs, act_u);
-  layer_inputs(nd, seed, hd, rs, act_d);
-  layer_inputs(np, seed, hp, rs, act_p);
-  float* gu = partial + static_cast<size_t>(blockIdx.x) * n_params;
-  float* gd = gu + net_params(nu);
-  float* gp = gd + net_params(nd);
-
-  const int tiles = (n + tl.T - 1) / tl.T;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const bool first = tile == static_cast<int>(blockIdx.x);
-    const int n0 = tile * tl.T;
-    const int nvalid = min(tl.T, n - n0);
-    __syncthreads();  // the previous tile is done with shared memory
-    for (int i = threadIdx.x; i < S * tl.T * a; i += blockDim.x) {
-      const int k = i % a;
-      const int p = (i / a) % tl.T;
-      const int s = i / (a * tl.T);
-      float v = 0.0f;
-      if (s > 0 || p < nvalid)
-        v = seed_value(norm, s, k, NT,
-                       s == 0 ? xg[static_cast<size_t>(n0 + p) * a + k] : 0.0f);
-      seed[k * rs + s * tl.T + p] = v;
-    }
-    for (int i = threadIdx.x; i < S * tl.T * c_out; i += blockDim.x) {
-      const int ch = i % c_out;
-      const int p = (i / c_out) % tl.T;
-      const int s = i / (c_out * tl.T);
-      float v = 0.0f;
-      if (p < nvalid)
-        v = cot[(static_cast<size_t>(s) * n + n0 + p) * c_out + ch];
-      c1[ch * rs + s * tl.T + p] = v;
-    }
-
-    remat_net<S, DTT>(nu, act_u, ws, bs, tl);
-    stage(nu, nu.n_layers - 1, ws, bs);
-    forward_layer<S, DTT>(act_u[nu.n_layers - 1], nu.dims[nu.n_layers - 1],
-                          c_out, ws, bs, fu, true, tl);
-    remat_net<S, DTT>(nd, act_d, ws, bs, tl);
-    stage(nd, nd.n_layers - 1, ws, bs);
-    forward_layer<S, DTT>(act_d[nd.n_layers - 1], nd.dims[nd.n_layers - 1],
-                          c_out, ws, bs, fd, true, tl);
-    remat_net<S, DTT>(np, act_p, ws, bs, tl);
-    __syncthreads();
-
-    // Reverse of y = part + dist * uv (rows: value, tangents, dtt with
-    // y_tt = p_tt + d_tt u + 2 d_t u_t + d u_tt).
-    for (int i = threadIdx.x; i < c_out * tl.T; i += blockDim.x) {
-      const int ch = i / tl.T;
-      const int p = i % tl.T;
-      const int r = ch * rs + p;
-      const float u0 = fu[r];
-      const float d0 = fd[r];
-      const float c0 = c1[r];
-      float acc_u = d0 * c0;
-      float acc_d = u0 * c0;
-#pragma unroll
-      for (int s = 1; s < S; ++s) {
-        const int q = r + s * tl.T;
-        const float cs = c1[q];
-        acc_u += fd[q] * cs;
-        acc_d += fu[q] * cs;
-        cu[q] = d0 * cs;
-        cd[q] = u0 * cs;
-      }
-      if (DTT) {
-        const int t = r + NT * tl.T;
-        const float ctt = c1[r + (S - 1) * tl.T];
-        cu[t] += 2.0f * fd[t] * ctt;
-        cd[t] += 2.0f * fu[t] * ctt;
-      }
-      cu[r] = acc_u;
-      cd[r] = acc_d;
-    }
-
-    // part's cotangent is c itself.
-    float* r1 = c1;
-    float* r2 = c2;
-    reverse_net<S, DTT>(np, act_p, &r1, &r2, ws, bs, gp, first, tl);
-    for (int i = threadIdx.x; i < a * tl.T; i += blockDim.x)
-      dxs[i] = r1[(i / tl.T) * rs + i % tl.T];
-    for (int i = threadIdx.x; i < S * tl.T * c_out; i += blockDim.x) {
-      const int ch = i / (S * tl.T);
-      const int q = i % (S * tl.T);
-      r2[ch * rs + q] = cu[ch * rs + q];
-    }
-    reverse_net<S, DTT>(nu, act_u, &r2, &r1, ws, bs, gu, first, tl);
-    for (int i = threadIdx.x; i < a * tl.T; i += blockDim.x)
-      dxs[i] += r2[(i / tl.T) * rs + i % tl.T];
-    for (int i = threadIdx.x; i < S * tl.T * c_out; i += blockDim.x) {
-      const int ch = i / (S * tl.T);
-      const int q = i % (S * tl.T);
-      r1[ch * rs + q] = cd[ch * rs + q];
-    }
-    reverse_net<S, DTT>(nd, act_d, &r1, &r2, ws, bs, gd, first, tl);
-    for (int i = threadIdx.x; i < a * tl.T; i += blockDim.x) {
-      const int k = i / tl.T;
-      const int p = i % tl.T;
-      if (p < nvalid)
-        dx[static_cast<size_t>(n0 + p) * a + k] = dxs[i] + r1[k * rs + p];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The wide-tile design of mlp_jet_bwd_kernel (B2, B3b).
+// The wide-tile design.
 //
 // A tile is 32 points (16 or 8 where 32 does not fit), and shared memory
-// holds only the layers in flight.  The remat writes every hidden layer's
-// output act[m] (m = 1 .. L-1, all S streams, rows of RS = S * T + 4 floats
-// as above) to a per-block workspace in global memory, which stays in L2;
-// the seed act[0] is not saved, since it is the kernel's input.  Three row
-// buffers take the activations and cotangents in turn: act[m] lives in
-// buffer slot(m), and when the reverse sweep is done with it, the same
-// buffer receives act[m]'s cotangent.  The head's output cotangent is the
-// cotangent of "act[L]".  So at reverse layer l the input act[l] is in
-// slot(l), the output cotangent in slot(l + 1), and slot(l - 1) is free:
-// while layer l runs, act[l - 1] is copied into it from the workspace (or
-// from the seed) with cp.async, and layer l - 1's weights into the second
-// of two weight buffers (a net too wide for two, such as a 140-wide one,
-// gets one, and each layer's weights are copied when the layer starts).
-// The remat overlaps the next layer's weights the same way.  The launcher
-// takes the largest tile that fits, with two weight buffers where they
-// fit.  The input cotangent overwrites act[l] in place
-// once the weight gradient has read it; layer 0 writes the seed cotangent
-// straight to dseed.  The value row h of a layer's output, which the
-// reverse epilogue needs, is read from the workspace.
+// holds only the layers in flight.  A buffer of width W is W rows of RS =
+// S * T + 4 floats, element [k * RS + s * T + p] being feature k of stream s
+// at point p (the 4-float pad spreads neighbouring rows over the banks).
+// The remat writes every hidden layer's output act[m] (m = 1 .. L-1, all S
+// streams) to a per-block workspace in global memory, which stays in L2;
+// the seed act[0] is not saved, since it is rebuilt from the kernel's
+// input.  Three row buffers take the activations and cotangents in turn:
+// act[m] lives in buffer slot(m), and when the reverse sweep is done with
+// it, the same buffer receives act[m]'s cotangent.  The head's output
+// cotangent is the cotangent of "act[L]".  So at reverse layer l the input
+// act[l] is in slot(l), the output cotangent in slot(l + 1), and slot(l - 1)
+// is free: while layer l runs, act[l - 1] is copied into it from the
+// workspace (or the seed is rebuilt there) with cp.async, and layer l - 1's
+// weights into the second of two weight buffers (a net too wide for two,
+// such as a 140-wide one, gets one, and each layer's weights are copied
+// when the layer starts).  The remat overlaps the next layer's weights the
+// same way.  The launcher takes the largest tile that fits, with two weight
+// buffers where they fit.  The input cotangent overwrites act[l] in place
+// once the weight gradient has read it; layer 0 hands the seed cotangent to
+// the kernel (a sink: dseed in global memory, or the composite's dx sum).
+// The value row h of a layer's output, which the reverse epilogue needs, is
+// read from the workspace.
 //
 // Products are register blocked: an item computes FB output features for P
 // points of every stream (FB * P * S accumulators), so each float4 of
@@ -551,6 +126,7 @@ struct Layout {
   int rs;         // row stride, S * T + 4
   int buf[3];     // offsets of the three row buffers
   int wbuf[2];    // offsets of the weight buffers; equal with one buffer
+  int extra;      // offset of the kernel's own buffers, after the weights
   int threads;
   long ws_floats;  // workspace per block
 };
@@ -616,48 +192,51 @@ __device__ void copy_rows(float* dst, const float* src, int floats) {
     copy_async16(dst + i, src + i);
 }
 
-// Start layer l: make its weights resident, wait for every copy in flight,
-// and, with two weight buffers, start copying layer `next`'s weights.
-// `held` tracks which layer each buffer holds (the same in every thread).
-__device__ const float* begin_layer(const Net& net, int l, int next,
+// Start layer l of net `id`: make its weights resident, wait for every copy
+// in flight, and, with two weight buffers, start copying layer `next`'s
+// weights of the same net.  `held` records which (net, layer) each buffer
+// holds (the same in every thread), so a kernel that runs several nets in
+// turn never reads another net's layer of the same index.
+__device__ const float* begin_layer(const Net& net, int id, int l, int next,
                                     const Layout& lay, float* smem,
                                     int* held) {
   const bool two = lay.wbuf[0] != lay.wbuf[1];
   const int b = two ? (l & 1) : 0;
-  if (held[b] != l) {
+  if (held[b] != id * MAX_LAYERS + l) {
     __syncthreads();  // every reader of the buffer's layer is done
     stage_weights(net, l, smem + lay.wbuf[b]);
-    held[b] = l;
+    held[b] = id * MAX_LAYERS + l;
   }
   copy_async_commit();
   copy_async_wait();
   __syncthreads();
-  if (two && next >= 0 && held[next & 1] != next) {
+  if (two && next >= 0 && held[next & 1] != id * MAX_LAYERS + next) {
     stage_weights(net, next, smem + lay.wbuf[next & 1]);
-    held[next & 1] = next;
+    held[next & 1] = id * MAX_LAYERS + next;
   }
   return smem + lay.wbuf[b];
 }
 
-// Remat of hidden layer l: out = layer(in) into shared memory and into the
-// workspace (out_g).
-template <int S, bool DTT, int T>
+// out = layer(in) into shared memory and, unless out_g is null, into the
+// workspace: the jet of a hidden tanh layer, or with HEAD the linear head
+// (bias on the value rows only).  F output features per item.
+template <int S, bool DTT, int T, bool HEAD, int F>
 __device__ void forward_layer(const float* in, int fi, int fo,
                               const float* ws, float* out, float* out_g,
                               int rs) {
   constexpr int NT = S - 1 - (DTT ? 1 : 0);
   const float* bs = ws + round_up(fi * fo, 4);
-  const int groups = (fo + FB - 1) / FB;
+  const int groups = (fo + F - 1) / F;
   const int items = groups * (T / P);
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
     const int q0 = (it / groups) * P;
-    int jc[FB];
+    int jc[F];
 #pragma unroll
-    for (int m = 0; m < FB; ++m)
+    for (int m = 0; m < F; ++m)
       jc[m] = min(it % groups + m * groups, fo - 1);  // clamped; not stored
-    float acc[FB][S][P];
+    float acc[F][S][P];
 #pragma unroll
-    for (int m = 0; m < FB; ++m)
+    for (int m = 0; m < F; ++m)
 #pragma unroll
       for (int s = 0; s < S; ++s)
 #pragma unroll
@@ -665,14 +244,14 @@ __device__ void forward_layer(const float* in, int fi, int fo,
     const float* row = in + q0;
 #pragma unroll 2
     for (int k = 0; k < fi; ++k, row += rs) {
-      float w[FB];
+      float w[F];
 #pragma unroll
-      for (int m = 0; m < FB; ++m) w[m] = ws[k * fo + jc[m]];
+      for (int m = 0; m < F; ++m) w[m] = ws[k * fo + jc[m]];
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const float4 a = *reinterpret_cast<const float4*>(row + s * T);
 #pragma unroll
-        for (int m = 0; m < FB; ++m) {
+        for (int m = 0; m < F; ++m) {
           acc[m][s][0] = fmaf(a.x, w[m], acc[m][s][0]);
           acc[m][s][1] = fmaf(a.y, w[m], acc[m][s][1]);
           acc[m][s][2] = fmaf(a.z, w[m], acc[m][s][2]);
@@ -681,12 +260,16 @@ __device__ void forward_layer(const float* in, int fi, int fo,
       }
     }
 #pragma unroll
-    for (int m = 0; m < FB; ++m) {
+    for (int m = 0; m < F; ++m) {
       const int j = it % groups + m * groups;
       if (j >= fo) continue;
       const float bj = bs[j];
 #pragma unroll
       for (int q = 0; q < P; ++q) {
+        if (HEAD) {
+          acc[m][0][q] += bj;
+          continue;
+        }
         const float h = tanhf(acc[m][0][q] + bj);
         const float g = 1.0f - h * h;
         if (DTT) {
@@ -703,7 +286,7 @@ __device__ void forward_layer(const float* in, int fi, int fo,
                                      acc[m][s][2], acc[m][s][3]);
         const int off = j * rs + s * T + q0;
         *reinterpret_cast<float4*>(out + off) = v;
-        *reinterpret_cast<float4*>(out_g + off) = v;
+        if (out_g != nullptr) *reinterpret_cast<float4*>(out_g + off) = v;
       }
     }
   }
@@ -711,26 +294,26 @@ __device__ void forward_layer(const float* in, int fi, int fo,
 
 // Reverse of a hidden layer's tanh-jet epilogue, in place on c (width fo);
 // z of the non-value streams is recomputed from s_in, h read from h_g
-// (the layer's saved output in the workspace).
-template <int S, bool DTT, int T>
+// (the layer's saved output in the workspace).  F features per item.
+template <int S, bool DTT, int T, int F>
 __device__ void reverse_epilogue(float* c, const float* s_in,
                                  const float* h_g, int fi, int fo,
                                  const float* ws, int rs) {
   constexpr int NT = S - 1 - (DTT ? 1 : 0);
-  const int groups = (fo + FB - 1) / FB;
+  const int groups = (fo + F - 1) / F;
   const int items = groups * (T / P);
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
     const int q0 = (it / groups) * P;
-    int jc[FB];
-    float4 h4[FB];
+    int jc[F];
+    float4 h4[F];
 #pragma unroll
-    for (int m = 0; m < FB; ++m) {
+    for (int m = 0; m < F; ++m) {
       jc[m] = min(it % groups + m * groups, fo - 1);
       h4[m] = load_cg(reinterpret_cast<const float4*>(h_g + jc[m] * rs + q0));
     }
-    float z[FB][S][P];  // z[.][0] unused: the value stream needs no recompute
+    float z[F][S][P];  // z[.][0] unused: the value stream needs no recompute
 #pragma unroll
-    for (int m = 0; m < FB; ++m)
+    for (int m = 0; m < F; ++m)
 #pragma unroll
       for (int s = 0; s < S; ++s)
 #pragma unroll
@@ -738,14 +321,14 @@ __device__ void reverse_epilogue(float* c, const float* s_in,
     const float* row = s_in + q0;
 #pragma unroll 2
     for (int k = 0; k < fi; ++k, row += rs) {
-      float w[FB];
+      float w[F];
 #pragma unroll
-      for (int m = 0; m < FB; ++m) w[m] = ws[k * fo + jc[m]];
+      for (int m = 0; m < F; ++m) w[m] = ws[k * fo + jc[m]];
 #pragma unroll
       for (int s = 1; s < S; ++s) {
         const float4 a = *reinterpret_cast<const float4*>(row + s * T);
 #pragma unroll
-        for (int m = 0; m < FB; ++m) {
+        for (int m = 0; m < F; ++m) {
           z[m][s][0] = fmaf(a.x, w[m], z[m][s][0]);
           z[m][s][1] = fmaf(a.y, w[m], z[m][s][1]);
           z[m][s][2] = fmaf(a.z, w[m], z[m][s][2]);
@@ -754,7 +337,7 @@ __device__ void reverse_epilogue(float* c, const float* s_in,
       }
     }
 #pragma unroll
-    for (int m = 0; m < FB; ++m) {
+    for (int m = 0; m < F; ++m) {
       const int j = it % groups + m * groups;
       if (j >= fo) continue;
       float* col = c + j * rs + q0;
@@ -803,8 +386,9 @@ __device__ void reverse_epilogue(float* c, const float* s_in,
 // stored into (first tile of the block) or added to the block's partial.
 // An item owns KB consecutive rows k and JB columns j strided by the
 // number of column groups, so the lanes of a warp share the rows of s_in
-// and read neighbouring rows of c.
-template <int S, int T>
+// and read neighbouring rows of c.  The bias columns go to the block's
+// last threads, which have the fewest items.
+template <int S, int T, int KB, int JB>
 __device__ void accumulate_grads(const float* s_in, int fi, const float* c,
                                  int fo, float* gw, float* gb, bool first,
                                  int rs) {
@@ -854,7 +438,7 @@ __device__ void accumulate_grads(const float* s_in, int fi, const float* c,
         }
       }
   }
-  for (int j = threadIdx.x; j < fo; j += blockDim.x) {
+  for (int j = blockDim.x - 1 - threadIdx.x; j < fo; j += blockDim.x) {
     float acc = 0.0f;
     for (int p = 0; p < T; ++p) acc += c[j * rs + p];
     gb[j] = first ? acc : gb[j] + acc;
@@ -862,23 +446,23 @@ __device__ void accumulate_grads(const float* s_in, int fi, const float* c,
 }
 
 // c_in = c W^T, the cotangent of the layer's input (width fi), into the
-// rows `out`; or, with out null, the first `srows` streams of the valid
-// points straight into the seed cotangent dseed (S, n, fi).
-template <int S, int T>
+// rows `out`; or, with out null, each input feature k's S x P block of
+// points q0 .. q0 + P - 1 handed to sink(k, q0, block).  F input features
+// per item.
+template <int S, int T, int F, class Sink>
 __device__ void backward_product(const float* c, int fo, const float* ws,
-                                 int fi, float* out, int rs, float* dseed,
-                                 int n, int n0, int nvalid, int srows) {
-  const int groups = (fi + FB - 1) / FB;
+                                 int fi, float* out, int rs, Sink sink) {
+  const int groups = (fi + F - 1) / F;
   const int items = groups * (T / P);
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
     const int q0 = (it / groups) * P;
-    const float* wr[FB];
+    const float* wr[F];
 #pragma unroll
-    for (int m = 0; m < FB; ++m)
+    for (int m = 0; m < F; ++m)
       wr[m] = ws + min(it % groups + m * groups, fi - 1) * fo;
-    float acc[FB][S][P];
+    float acc[F][S][P];
 #pragma unroll
-    for (int m = 0; m < FB; ++m)
+    for (int m = 0; m < F; ++m)
 #pragma unroll
       for (int s = 0; s < S; ++s)
 #pragma unroll
@@ -886,14 +470,14 @@ __device__ void backward_product(const float* c, int fo, const float* ws,
     const float* row = c + q0;
 #pragma unroll 2
     for (int j = 0; j < fo; ++j, row += rs) {
-      float w[FB];
+      float w[F];
 #pragma unroll
-      for (int m = 0; m < FB; ++m) w[m] = wr[m][j];
+      for (int m = 0; m < F; ++m) w[m] = wr[m][j];
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const float4 a = *reinterpret_cast<const float4*>(row + s * T);
 #pragma unroll
-        for (int m = 0; m < FB; ++m) {
+        for (int m = 0; m < F; ++m) {
           acc[m][s][0] = fmaf(a.x, w[m], acc[m][s][0]);
           acc[m][s][1] = fmaf(a.y, w[m], acc[m][s][1]);
           acc[m][s][2] = fmaf(a.z, w[m], acc[m][s][2]);
@@ -902,7 +486,7 @@ __device__ void backward_product(const float* c, int fo, const float* ws,
       }
     }
 #pragma unroll
-    for (int m = 0; m < FB; ++m) {
+    for (int m = 0; m < F; ++m) {
       const int k = it % groups + m * groups;
       if (k >= fi) continue;
       if (out != nullptr) {
@@ -913,12 +497,147 @@ __device__ void backward_product(const float* c, int fo, const float* ws,
                           acc[m][s][3]);
         continue;
       }
-      for (int s = 0; s < srows; ++s)
-#pragma unroll
-        for (int q = 0; q < P; ++q)
-          if (q0 + q < nvalid)
-            dseed[(static_cast<size_t>(s) * n + n0 + q0 + q) * fi + k] =
-                acc[m][s][q];
+      sink(k, q0, acc[m]);
+    }
+  }
+}
+
+// A layer `width` features wide whose items of FB features would leave
+// most of the block's `threads` idle takes one feature per item.  Which
+// thread computes an element does not change its arithmetic, so the results
+// are the same.  (`threads` is the launch's, not blockDim.x, so that the
+// one-thread CPU emulation takes the same paths.)
+__device__ inline bool narrow(int width, int T, int threads) {
+  return width * (T / P) <= threads;
+}
+
+template <int S, bool DTT, int T, bool HEAD>
+__device__ void forward_any(const float* in, int fi, int fo, const float* ws,
+                            float* out, float* out_g, int rs, int threads) {
+  if (narrow(fo, T, threads))
+    forward_layer<S, DTT, T, HEAD, 1>(in, fi, fo, ws, out, out_g, rs);
+  else
+    forward_layer<S, DTT, T, HEAD, FB>(in, fi, fo, ws, out, out_g, rs);
+}
+
+template <int S, int T, class Sink>
+__device__ void backward_any(const float* c, int fo, const float* ws, int fi,
+                             float* out, int rs, int threads, Sink sink) {
+  if (narrow(fi, T, threads))
+    backward_product<S, T, 1>(c, fo, ws, fi, out, rs, sink);
+  else
+    backward_product<S, T, FB>(c, fo, ws, fi, out, rs, sink);
+}
+
+// The weight gradient in KB x JB blocks, or in 2 x 2 or single elements
+// where the larger blocks would leave most of the block idle.
+template <int S, int T>
+__device__ void weight_grads(const float* s_in, int fi, const float* c,
+                             int fo, float* gw, float* gb, bool first, int rs,
+                             int threads) {
+  auto items = [&](int kb, int jb) {
+    return 4 * ((fi + kb - 1) / kb) * ((fo + jb - 1) / jb);
+  };
+  const int n = threads;
+  if (items(KB, JB) > n)
+    accumulate_grads<S, T, KB, JB>(s_in, fi, c, fo, gw, gb, first, rs);
+  else if (items(2, 2) > n)
+    accumulate_grads<S, T, 2, 2>(s_in, fi, c, fo, gw, gb, first, rs);
+  else
+    accumulate_grads<S, T, 1, 1>(s_in, fi, c, fo, gw, gb, first, rs);
+}
+
+// Remat of net `id`'s hidden layers on one tile: act[m] (m = 1 .. L-1) into
+// the row buffers and, unless `save` is null, into the workspace rows at
+// `save`.  fill_seed(rows) returns where the seed streams act[0] are: it
+// may put them into act[0]'s row buffer `rows`, or return a buffer of its
+// own.  place_cot(rows) is called once the head cotangent's buffer slot(L)
+// is free (before the first layer of a one-layer net, else with layer
+// L - 2), so that copies into it overlap the last layer.  Returns act[0].
+template <int S, bool DTT, int T, class Seed, class Cot>
+__device__ const float* remat_net(const Net& net, int id, const Layout& lay,
+                                  float* smem, int* held, float* save,
+                                  Seed fill_seed, Cot place_cot) {
+  const int L = net.n_layers;
+  auto rows = [&](int m) { return smem + lay.buf[slot(m, L)]; };
+  const float* s0 = fill_seed(rows(0));
+  if (L == 1) place_cot(rows(1));
+  float* out_g = save;
+  for (int l = 0; l + 1 < L; ++l) {
+    const float* ws = begin_layer(net, id, l, l + 1, lay, smem, held);
+    if (l + 2 == L) place_cot(rows(L));
+    copy_async_commit();
+    forward_any<S, DTT, T, false>(l == 0 ? s0 : rows(l), net.dims[l],
+                                  net.dims[l + 1], ws, rows(l + 1), out_g,
+                                  lay.rs, lay.threads);
+    if (out_g != nullptr) out_g += net.dims[l + 1] * lay.rs;
+  }
+  return s0;
+}
+
+// The linear head of a rematerialised net, whose act[0] is s0: its output
+// jet into `out` (width dims[L], row stride rs).
+template <int S, bool DTT, int T>
+__device__ void head_forward(const Net& net, int id, const Layout& lay,
+                             float* smem, int* held, const float* s0,
+                             float* out) {
+  const int L = net.n_layers;
+  const float* ws = begin_layer(net, id, L - 1, -1, lay, smem, held);
+  forward_any<S, DTT, T, true>(L == 1 ? s0 : smem + lay.buf[slot(L - 1, L)],
+                               net.dims[L - 1], net.dims[L], ws, out, nullptr,
+                               lay.rs, lay.threads);
+}
+
+// Reverse sweep of net `id` on one tile after remat_net: from the head
+// cotangent in `c_head` (width dims[L], row stride rs; read only) down to
+// layer 0, whose seed cotangent goes to `sink` (see backward_product).
+// Accumulates into the block's partial gradient `g` of this net; `save` is
+// the workspace remat_net wrote, fill_seed the same as there and s0 what
+// remat_net returned.
+template <int S, bool DTT, int T, class Seed, class Sink>
+__device__ void reverse_net(const Net& net, int id, const Layout& lay,
+                            float* smem, int* held, const float* save,
+                            const float* s0, const float* c_head, float* g,
+                            bool first, Seed fill_seed, Sink sink) {
+  const int L = net.n_layers;
+  const int rs = lay.rs;
+  auto rows = [&](int m) { return smem + lay.buf[slot(m, L)]; };
+  const float* wact[MAX_LAYERS];  // act[m], m >= 1, in the workspace
+  for (int m = 1; m < L; ++m) {
+    wact[m] = save;
+    save += static_cast<size_t>(net.dims[m]) * rs;
+  }
+  for (int l = L - 1; l >= 0; --l) {
+    const int fi = net.dims[l];
+    const int fo = net.dims[l + 1];
+    const float* ws = begin_layer(net, id, l, l - 1, lay, smem, held);
+    if (l >= 1 && l + 1 < L) {  // act[L - 2] is still resident
+      if (l == 1)
+        s0 = fill_seed(rows(0));
+      else
+        copy_rows(rows(l - 1), wact[l - 1], net.dims[l - 1] * rs);
+    }
+    copy_async_commit();
+    const float* s_in = l == 0 ? s0 : rows(l);
+    const float* c = l + 1 == L ? c_head : rows(l + 1);
+    if (l + 1 < L) {
+      if (narrow(fo, T, lay.threads))
+        reverse_epilogue<S, DTT, T, 1>(rows(l + 1), s_in, wact[l + 1], fi, fo,
+                                       ws, rs);
+      else
+        reverse_epilogue<S, DTT, T, FB>(rows(l + 1), s_in, wact[l + 1], fi,
+                                        fo, ws, rs);
+      __syncthreads();
+    }
+    int w_off, b_off;
+    packed_offsets(net, l, &w_off, &b_off);
+    weight_grads<S, T>(s_in, fi, c, fo, g + w_off, g + b_off, first, rs,
+                       lay.threads);
+    if (l > 0) {
+      __syncthreads();  // the weight gradient is done with act[l]
+      backward_any<S, T>(c, fo, ws, fi, rows(l), rs, lay.threads, sink);
+    } else {
+      backward_any<S, T>(c, fo, ws, fi, nullptr, rs, lay.threads, sink);
     }
   }
 }
@@ -941,13 +660,7 @@ mlp_jet_bwd_kernel(const float* __restrict__ seed_f,
   const int e = net.dims[0];
   const int rs = lay.rs;
   float* g = partial + static_cast<size_t>(blockIdx.x) * n_params;
-  float* wact[MAX_LAYERS];  // act[m], m >= 1, in this block's workspace
-  float* wp = workspace + static_cast<size_t>(blockIdx.x) * lay.ws_floats;
-  for (int m = 1; m < L; ++m) {
-    wact[m] = wp;
-    wp += static_cast<size_t>(net.dims[m]) * rs;
-  }
-  auto rows = [&](int m) { return smem + lay.buf[slot(m, L)]; };
+  float* save = workspace + static_cast<size_t>(blockIdx.x) * lay.ws_floats;
   int held[2] = {-1, -1};
 
   const int tiles = (n + T - 1) / T;
@@ -955,50 +668,154 @@ mlp_jet_bwd_kernel(const float* __restrict__ seed_f,
     const bool first = tile == static_cast<int>(blockIdx.x);
     const int n0 = tile * T;
     const int nvalid = min(T, n - n0);
+    auto seed = [&](float* dst) -> const float* {
+      gather_seed<S, DTT, T>(seed_f, seed_d, seed_tt, n, n0, nvalid, e, rs,
+                             dst);
+      return dst;
+    };
+    auto head_cot = [&](float* dst) {
+      gather_cot<S, T>(cot, n, n0, nvalid, net.dims[L], rs, dst);
+    };
+    auto to_dseed = [&](int k, int q0, const float (&v)[S][P]) {
+      for (int s = 0; s < (full_dx ? S : 1); ++s)
+#pragma unroll
+        for (int q = 0; q < P; ++q)
+          if (q0 + q < nvalid)
+            dseed[(static_cast<size_t>(s) * n + n0 + q0 + q) * e + k] =
+                v[s][q];
+    };
     __syncthreads();  // the previous tile is done with shared memory
-    gather_seed<S, DTT, T>(seed_f, seed_d, seed_tt, n, n0, nvalid, e, rs,
-                           rows(0));
-    if (L == 1) gather_cot<S, T>(cot, n, n0, nvalid, net.dims[1], rs, rows(1));
+    const float* s0 =
+        remat_net<S, DTT, T>(net, 0, lay, smem, held, save, seed, head_cot);
+    reverse_net<S, DTT, T>(net, 0, lay, smem, held, save, s0,
+                           smem + lay.buf[slot(L, L)], g, first, seed,
+                           to_dseed);
+  }
+}
 
-    for (int l = 0; l + 1 < L; ++l) {
-      const float* ws = begin_layer(net, l, l + 1, lay, smem, held);
-      if (l + 2 == L)  // slot(L) is free once layer L - 3 has run
-        gather_cot<S, T>(cot, n, n0, nvalid, net.dims[L], rs, rows(L));
-      copy_async_commit();
-      forward_layer<S, DTT, T>(rows(l), net.dims[l], net.dims[l + 1], ws,
-                               rows(l + 1), wact[l + 1], rs);
+// The composite's sweep of one tile, in this order:
+//   1. the output cotangent c into its own buffer;
+//   2. remat of dist up to its head output fd, saving nothing;
+//   3. remat of uv, saving its rows in the workspace, and its head fu;
+//   4. reverse of y = part + dist * uv into cu (the uv head's cotangent,
+//      in uv's free row buffer) and cd;
+//   5. reverse sweep of uv, whose top activations are still resident;
+//   6. remat of dist again, now saving its rows in the workspace uv is done
+//      with, and its reverse sweep from cd;
+//   7. remat and reverse sweep of part from c;
+//   8. the three value-row seed cotangents, summed in shared memory in the
+//      order uv, dist, part, into dx.
+// The second remat of dist costs about 4% of the uv net's work at the plate
+// widths; saving all three nets' rows instead would need 720 rows of
+// workspace per block where uv alone needs 560, more than the L2 holds at
+// one block per SM.  The seed is built once per tile from x (raw or
+// normalised) into a buffer of its own, which every net reads as act[0].
+template <int S, bool DTT, int T>
+__global__ void __launch_bounds__(wide::MAX_THREADS, 1)
+composite_jet_bwd_kernel(const float* __restrict__ xg, int n, int a,
+                         Norm norm, Net nu, Net nd, Net np,
+                         const float* __restrict__ cot, wide::Layout lay,
+                         float* __restrict__ partial, int n_params,
+                         float* __restrict__ dx, float* workspace) {
+  using namespace wide;
+  constexpr int NT = S - 1 - (DTT ? 1 : 0);
+  enum { UV, DIST, PART };
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int rs = lay.rs;
+  const int c_out = nu.dims[nu.n_layers];
+  float* c = smem + lay.extra;   // output cotangent
+  float* cd = c + c_out * rs;    // dist head's cotangent
+  float* fd = cd + c_out * rs;   // dist output jet
+  float* fu = fd + c_out * rs;   // uv output jet
+  float* s0 = fu + c_out * rs;   // seed streams, width a
+  float* dxs = s0 + a * rs;      // (a, T) summed value-row seed cotangent
+  float* cu = smem + lay.buf[slot(nu.n_layers, nu.n_layers)];
+  float* gu = partial + static_cast<size_t>(blockIdx.x) * n_params;
+  float* gd = gu + net_params(nu);
+  float* gp = gd + net_params(nd);
+  float* save = workspace + static_cast<size_t>(blockIdx.x) * lay.ws_floats;
+  int held[2] = {-1, -1};
+  bool add_dx = false;
+
+  const int tiles = (n + T - 1) / T;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const bool first = tile == static_cast<int>(blockIdx.x);
+    const int n0 = tile * T;
+    const int nvalid = min(T, n - n0);
+    auto seed = [&](float*) -> const float* { return s0; };
+    auto no_cot = [](float*) {};
+    auto sum_dx = [&](int k, int q0, const float (&v)[S][P]) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float* d = dxs + k * T + q0 + q;
+        *d = add_dx ? *d + v[0][q] : v[0][q];
+      }
+    };
+    __syncthreads();  // the previous tile is done with shared memory
+    gather_cot<S, T>(cot, n, n0, nvalid, c_out, rs, c);
+    for (int i = threadIdx.x; i < S * T * a; i += blockDim.x) {
+      const int k = i % a;
+      const int p = (i / a) % T;
+      const int s = i / (a * T);
+      s0[k * rs + s * T + p] =
+          p < nvalid
+              ? seed_value(norm, s, k, NT,
+                           s == 0 ? xg[static_cast<size_t>(n0 + p) * a + k]
+                                  : 0.0f)
+              : 0.0f;
+    }
+    remat_net<S, DTT, T>(nd, DIST, lay, smem, held, nullptr, seed, no_cot);
+    head_forward<S, DTT, T>(nd, DIST, lay, smem, held, s0, fd);
+    __syncthreads();
+    remat_net<S, DTT, T>(nu, UV, lay, smem, held, save, seed, no_cot);
+    head_forward<S, DTT, T>(nu, UV, lay, smem, held, s0, fu);
+    __syncthreads();
+
+    // Reverse of y = part + dist * uv (rows: value, tangents, dtt with
+    // y_tt = p_tt + d_tt u + 2 d_t u_t + d u_tt).
+    for (int i = threadIdx.x; i < c_out * T; i += blockDim.x) {
+      const int r = (i / T) * rs + i % T;
+      const float u0 = fu[r];
+      const float d0 = fd[r];
+      const float c0 = c[r];
+      float acc_u = d0 * c0;
+      float acc_d = u0 * c0;
+#pragma unroll
+      for (int s = 1; s < S; ++s) {
+        const int q = r + s * T;
+        const float cs = c[q];
+        acc_u += fd[q] * cs;
+        acc_d += fu[q] * cs;
+        cu[q] = d0 * cs;
+        cd[q] = u0 * cs;
+      }
+      if (DTT) {
+        const int t = r + NT * T;
+        const float ctt = c[r + (S - 1) * T];
+        cu[t] += 2.0f * fd[t] * ctt;
+        cd[t] += 2.0f * fu[t] * ctt;
+      }
+      cu[r] = acc_u;
+      cd[r] = acc_d;
     }
 
-    for (int l = L - 1; l >= 0; --l) {
-      const int fi = net.dims[l];
-      const int fo = net.dims[l + 1];
-      const float* ws = begin_layer(net, l, l - 1, lay, smem, held);
-      if (l >= 1 && l + 1 < L) {  // act[L - 2] is still resident
-        if (l == 1)
-          gather_seed<S, DTT, T>(seed_f, seed_d, seed_tt, n, n0, nvalid, e,
-                                 rs, rows(0));
-        else
-          copy_rows(rows(l - 1), wact[l - 1], net.dims[l - 1] * rs);
-      }
-      copy_async_commit();
-      float* s_in = rows(l);
-      float* c = rows(l + 1);
-      if (l + 1 < L) {
-        reverse_epilogue<S, DTT, T>(c, s_in, wact[l + 1], fi, fo, ws, rs);
-        __syncthreads();
-      }
-      int w_off, b_off;
-      packed_offsets(net, l, &w_off, &b_off);
-      accumulate_grads<S, T>(s_in, fi, c, fo, g + w_off, g + b_off, first,
-                             rs);
-      if (l > 0) {
-        __syncthreads();  // the weight gradient is done with s_in
-        backward_product<S, T>(c, fo, ws, fi, s_in, rs, nullptr, n, n0,
-                               nvalid, 0);
-      } else {
-        backward_product<S, T>(c, fo, ws, fi, nullptr, rs, dseed, n, n0,
-                               nvalid, full_dx ? S : 1);
-      }
+    add_dx = false;
+    reverse_net<S, DTT, T>(nu, UV, lay, smem, held, save, s0, cu, gu, first,
+                           seed, sum_dx);
+    add_dx = true;
+    __syncthreads();
+    remat_net<S, DTT, T>(nd, DIST, lay, smem, held, save, seed, no_cot);
+    reverse_net<S, DTT, T>(nd, DIST, lay, smem, held, save, s0, cd, gd, first,
+                           seed, sum_dx);
+    __syncthreads();
+    remat_net<S, DTT, T>(np, PART, lay, smem, held, save, seed, no_cot);
+    reverse_net<S, DTT, T>(np, PART, lay, smem, held, save, s0, c, gp, first,
+                           seed, sum_dx);
+    __syncthreads();
+    for (int i = threadIdx.x; i < a * T; i += blockDim.x) {
+      const int p = i % T;
+      if (p < nvalid) dx[static_cast<size_t>(n0 + p) * a + i / T] = dxs[i];
     }
   }
 }
@@ -1029,38 +846,52 @@ int grid_blocks(int n, int t, int max_blocks) {
   return std::max(1, std::min(tiles, max_blocks));
 }
 
-// The wide-tile layout of a net: row buffers sized by what each slot
-// holds, one or two weight buffers; returns the shared floats it needs.
-long wide_plan(const Net& net, int s, int t, bool two, wide::Layout* lay) {
-  const int L = net.n_layers;
+// The wide-tile layout of `count` nets that take turns on a tile: row
+// buffers sized by what each slot holds in any of them, one or two weight
+// buffers, then the kernel's own `extra_rows` rows and `extra_cols` floats
+// per point; the workspace holds the most hidden rows of any one net.
+// Returns the shared floats it needs.
+long wide_plan(const Net* nets, int count, int s, int t, bool two,
+               int extra_rows, int extra_cols, wide::Layout* lay) {
   lay->T = t;
   lay->rs = s * t + 4;
   int rows[3] = {0, 0, 0};
-  for (int m = 0; m <= L; ++m) {
-    int& r = rows[wide::slot(m, L)];
-    r = std::max(r, net.dims[m]);
+  long wsize[2] = {0, 0};
+  long hidden = 0;
+  int widest_hidden = 0;  // one item per FB features and P points of it
+  for (int i = 0; i < count; ++i) {
+    const Net& net = nets[i];
+    const int L = net.n_layers;
+    for (int m = 0; m <= L; ++m) {
+      int& r = rows[wide::slot(m, L)];
+      r = std::max(r, net.dims[m]);
+    }
+    for (int l = 0; l < L; ++l) {
+      long& w = wsize[two ? (l & 1) : 0];
+      w = std::max(w, static_cast<long>(round_up(net.dims[l] * net.dims[l + 1], 4) +
+                                        round_up(net.dims[l + 1], 4)));
+    }
+    long h = 0;
+    int widest = L == 1 ? std::max(net.dims[0], net.dims[1]) : 0;
+    for (int m = 1; m < L; ++m) {
+      h += net.dims[m];
+      widest = std::max(widest, net.dims[m]);
+    }
+    hidden = std::max(hidden, h);
+    widest_hidden = std::max(widest_hidden, widest);
   }
   long off = 0;
   for (int b = 0; b < 3; ++b) {
     lay->buf[b] = static_cast<int>(off);
     off += static_cast<long>(rows[b]) * lay->rs;
   }
-  long wsize[2] = {0, 0};
-  for (int l = 0; l < L; ++l) {
-    long& w = wsize[two ? (l & 1) : 0];
-    w = std::max(w, static_cast<long>(round_up(net.dims[l] * net.dims[l + 1], 4) +
-                                      round_up(net.dims[l + 1], 4)));
-  }
   lay->wbuf[0] = static_cast<int>(off);
   off += wsize[0];
   lay->wbuf[1] = two ? static_cast<int>(off) : lay->wbuf[0];
   off += wsize[1];
-  long hidden = 0;
-  for (int m = 1; m < L; ++m) hidden += net.dims[m];
+  lay->extra = static_cast<int>(off);
+  off += static_cast<long>(extra_rows) * lay->rs + static_cast<long>(extra_cols) * t;
   lay->ws_floats = hidden * lay->rs;
-  // One item per FB features and P points of the widest hidden layer.
-  int widest_hidden = L == 1 ? std::max(net.dims[0], net.dims[1]) : 0;
-  for (int m = 1; m < L; ++m) widest_hidden = std::max(widest_hidden, net.dims[m]);
   const int items = (widest_hidden + wide::FB - 1) / wide::FB * (t / wide::P);
   lay->threads = std::min(wide::MAX_THREADS, std::max(64, round_up(items, 32)));
   return off;
@@ -1068,13 +899,23 @@ long wide_plan(const Net& net, int s, int t, bool two, wide::Layout* lay) {
 
 // The largest tile (32, 16 or 8 points) that fits, with two weight buffers
 // where they fit; returns the shared bytes, 0 if nothing fits.
-size_t wide_layout(const Net& net, int s, wide::Layout* lay) {
+size_t wide_layout(const Net* nets, int count, int s, int extra_rows,
+                   int extra_cols, wide::Layout* lay) {
   for (int t = 32; t >= 8; t /= 2)
     for (int two = 1; two >= 0; --two) {
-      const size_t bytes = wide_plan(net, s, t, two == 1, lay) * sizeof(float);
+      const size_t bytes = wide_plan(nets, count, s, t, two == 1, extra_rows,
+                                     extra_cols, lay) * sizeof(float);
       if (bytes <= static_cast<size_t>(MAX_SMEM)) return bytes;
     }
   return 0;
+}
+
+// The composite's layout: the three nets, and the c, cd, fd and fu buffers
+// (head width each), the seed (width a) and the (a, T) dx sum of
+// composite_jet_bwd_kernel.
+size_t composite_layout(const Net* nets, int s, int a, wide::Layout* lay) {
+  return wide_layout(nets, 3, s, 4 * nets[0].dims[nets[0].n_layers] + a, a,
+                     lay);
 }
 
 template <int S, bool DTT>
@@ -1083,7 +924,7 @@ int launch_mlp_bwd(const float* sf, const float* sd, const float* stt,
                    int max_blocks, float* partial, float* grad, float* dseed,
                    float* workspace, cudaStream_t stream) {
   wide::Layout lay;
-  const size_t bytes = wide_layout(net, S, &lay);
+  const size_t bytes = wide_layout(&net, 1, S, 0, 0, &lay);
   if (bytes == 0 || workspace == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kern = lay.T == 32   ? mlp_jet_bwd_kernel<S, DTT, 32>
@@ -1105,36 +946,51 @@ template <int S, bool DTT>
 int launch_composite_bwd(const float* x, int n, int a, const Norm& norm,
                          const Net* nets, const float* cot, int max_blocks,
                          float* partial, float* grad, float* dx,
-                         cudaStream_t stream) {
-  int hid = 0, wmax = 0, bmax = 0;
-  int cmax = 0;
-  long rows = a;
-  for (int i = 0; i < 3; ++i) {
-    net_sizes(nets[i], &hid, &wmax, &bmax);
-    cmax = std::max(cmax, widest(nets[i]));
-    rows += hidden_rows(nets[i]);
-  }
-  const int c_out = nets[0].dims[nets[0].n_layers];
-  rows += 4L * c_out + 2L * cmax;
-  size_t bytes = 0;
-  // ws, bs (cmax >= bmax) and the (a, T <= 8) seed-cotangent sum.
-  const int t = pick_tile(S, rows, round_up(wmax, 4) + round_up(cmax, 4) +
-                                       a * 8, 8, 4, &bytes);
-  if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(composite_jet_bwd_kernel<S, DTT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         float* workspace, cudaStream_t stream) {
+  wide::Layout lay;
+  const size_t bytes = composite_layout(nets, S, a, &lay);
+  if (bytes == 0 || workspace == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = lay.T == 32   ? composite_jet_bwd_kernel<S, DTT, 32>
+                    : lay.T == 16 ? composite_jet_bwd_kernel<S, DTT, 16>
+                                  : composite_jet_bwd_kernel<S, DTT, 8>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(bytes));
-  const Tile tl{t, S * t + 4};
-  const int blocks = grid_blocks(n, t, max_blocks);
+  const int blocks = grid_blocks(n, lay.T, max_blocks);
   const int n_params = static_cast<int>(
       net_params(nets[0]) + net_params(nets[1]) + net_params(nets[2]));
-  composite_jet_bwd_kernel<S, DTT><<<blocks, THREADS, bytes, stream>>>(
-      x, n, a, norm, nets[0], nets[1], nets[2], cot, tl, cmax, wmax, partial,
-      n_params, dx);
+  kern<<<blocks, lay.threads, bytes, stream>>>(
+      x, n, a, norm, nets[0], nets[1], nets[2], cot, lay, partial, n_params,
+      dx, workspace);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return launch_reduce(partial, blocks, n_params, grad, stream);
 }
+
+// A net of these widths without parameters, for the size queries; false if
+// a width or the depth is out of range.
+bool net_of_widths(const int* dims, int n_layers, Net* net) {
+  if (n_layers < 1 || n_layers > MAX_LAYERS) return false;
+  net->n_layers = n_layers;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1) return false;
+    net->dims[l] = dims[l];
+  }
+  return true;
+}
+
+// The composite's nets all read the a input coordinates and share the head
+// width.
+bool composite_nets_fit(const Net* nets, int a) {
+  if (a < 3 || a > 4) return false;
+  const int c = nets[0].dims[nets[0].n_layers];
+  for (int i = 0; i < 3; ++i)
+    if (nets[i].dims[0] != a || nets[i].dims[nets[i].n_layers] != c)
+      return false;
+  return true;
+}
+
+int streams(int a, int order) { return 1 + a + (order == 2 ? 1 : 0); }
 
 }  // namespace
 
@@ -1144,17 +1000,27 @@ extern "C" {
 // net of these widths; -1 if the kernel does not take it.
 long long fused_mlp_jet_bwd_workspace(int n_tangents, int order,
                                       const int* dims, int n_layers) {
-  if (n_tangents < 3 || n_tangents > 4 || order < 1 || order > 2 ||
-      n_layers < 1 || n_layers > MAX_LAYERS)
-    return -1;
-  Net net;  // widths only: the layout does not read the parameters
-  net.n_layers = n_layers;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (dims[l] < 1) return -1;
-    net.dims[l] = dims[l];
-  }
+  Net net;
   wide::Layout lay;
-  if (wide_layout(net, 1 + n_tangents + (order == 2 ? 1 : 0), &lay) == 0)
+  if (n_tangents < 3 || n_tangents > 4 || order < 1 || order > 2 ||
+      !net_of_widths(dims, n_layers, &net) ||
+      wide_layout(&net, 1, streams(n_tangents, order), 0, 0, &lay) == 0)
+    return -1;
+  return lay.ws_floats;
+}
+
+// Floats of workspace that fused_composite_jet_bwd_launch needs per block
+// for nets of these widths (uv, dist, part); -1 if the kernel does not take
+// them.
+long long fused_composite_jet_bwd_workspace(int a, int order, const int* du,
+                                            int lu, const int* dd, int ld,
+                                            const int* dp, int lp) {
+  Net nets[3];
+  wide::Layout lay;
+  if (order < 1 || order > 2 || !net_of_widths(du, lu, &nets[0]) ||
+      !net_of_widths(dd, ld, &nets[1]) || !net_of_widths(dp, lp, &nets[2]) ||
+      !composite_nets_fit(nets, a) ||
+      composite_layout(nets, streams(a, order), a, &lay) == 0)
     return -1;
   return lay.ws_floats;
 }
@@ -1193,7 +1059,9 @@ int fused_mlp_jet_bwd_launch(const float* seed_f, const float* seed_d,
 // as for fused_composite_jet_launch; cot: (S, n, C).  partial: max_blocks x
 // (Pu + Pd + Pp) floats of scratch; grad: the uv, dist and part gradients,
 // each in its packed layout, one after the other; dx: (n, a), the summed
-// value-row seed cotangent (before the normalisation's chain rule).
+// value-row seed cotangent (before the normalisation's chain rule);
+// workspace: max_blocks x fused_composite_jet_bwd_workspace(...) floats of
+// scratch.
 int fused_composite_jet_bwd_launch(const float* x, int n, int a, int order,
                                    const float* lb, const float* ub,
                                    const float* pu, const int* du, int lu,
@@ -1201,16 +1069,12 @@ int fused_composite_jet_bwd_launch(const float* x, int n, int a, int order,
                                    const float* pp, const int* dp, int lp,
                                    const float* cot, int max_blocks,
                                    float* partial, float* grad, float* dx,
-                                   void* stream) {
+                                   float* workspace, void* stream) {
   Net nets[3];
   if (!make_net(pu, du, lu, &nets[0]) || !make_net(pd, dd, ld, &nets[1]) ||
-      !make_net(pp, dp, lp, &nets[2]) || n < 0 || a < 3 || a > 4 ||
-      max_blocks < 1)
+      !make_net(pp, dp, lp, &nets[2]) || !composite_nets_fit(nets, a) ||
+      n < 0 || max_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int c = nets[0].dims[lu];
-  for (int i = 0; i < 3; ++i)
-    if (nets[i].dims[0] != a || nets[i].dims[nets[i].n_layers] != c)
-      return static_cast<int>(cudaErrorInvalidValue);
   const Norm norm = make_norm(lb, ub, a);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n == 0)
@@ -1221,10 +1085,10 @@ int fused_composite_jet_bwd_launch(const float* x, int n, int a, int order,
         st));
   const int key = a * 2 + (order == 2 ? 1 : 0);
   switch (key) {
-    case 6: return launch_composite_bwd<4, false>(x, n, a, norm, nets, cot, max_blocks, partial, grad, dx, st);
-    case 7: return launch_composite_bwd<5, true>(x, n, a, norm, nets, cot, max_blocks, partial, grad, dx, st);
-    case 8: return launch_composite_bwd<5, false>(x, n, a, norm, nets, cot, max_blocks, partial, grad, dx, st);
-    case 9: return launch_composite_bwd<6, true>(x, n, a, norm, nets, cot, max_blocks, partial, grad, dx, st);
+    case 6: return launch_composite_bwd<4, false>(x, n, a, norm, nets, cot, max_blocks, partial, grad, dx, workspace, st);
+    case 7: return launch_composite_bwd<5, true>(x, n, a, norm, nets, cot, max_blocks, partial, grad, dx, workspace, st);
+    case 8: return launch_composite_bwd<5, false>(x, n, a, norm, nets, cot, max_blocks, partial, grad, dx, workspace, st);
+    case 9: return launch_composite_bwd<6, true>(x, n, a, norm, nets, cot, max_blocks, partial, grad, dx, workspace, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -253,21 +253,31 @@ def fused_composite_jet_bwd(params: dict, x, cot, *, order: int = 2, lb=None,
     nets = [pack_params(params[k], device) for k in NETS]
     _check_cot(cot, 1 + a + (order - 1), n, nets[0][1][-1])
     sizes = [packed.numel() for packed, _ in nets]
+    lib = _native.library()
+    widths = []
+    for _, dims in nets:
+        widths += [_int_array(dims), len(dims) - 1]
+    per_block = lib.fused_composite_jet_bwd_workspace(a, order, *widths)
+    if per_block < 0:
+        raise ValueError(f"the composite backward kernel does not take nets "
+                         f"of widths {[dims for _, dims in nets]} at order "
+                         f"{order}")
     max_blocks = _max_blocks(device)
     partial = torch.empty((max_blocks, sum(sizes)), dtype=torch.float32,
                           device=device)
+    workspace = torch.empty(max(1, max_blocks * per_block),
+                            dtype=torch.float32, device=device)
     grad = torch.empty(sum(sizes), dtype=torch.float32, device=device)
     dh0 = torch.empty((n, a), dtype=torch.float32, device=device)
     args = []
     for packed, dims in nets:
         args += [packed.data_ptr(), _int_array(dims), len(dims) - 1]
-    lib = _native.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fused_composite_jet_bwd_launch(
             x.data_ptr(), n, a, order, _float_array(lb), _float_array(ub),
             *args, cot.data_ptr(), max_blocks, partial.data_ptr(),
-            grad.data_ptr(), dh0.data_ptr(), stream)
+            grad.data_ptr(), dh0.data_ptr(), workspace.data_ptr(), stream)
     _native.check(err, "fused_composite_jet_bwd")
     LAUNCHES["fused_composite_jet_bwd"] += 1
     flats = torch.split(grad, sizes)

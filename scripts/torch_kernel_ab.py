@@ -169,7 +169,9 @@ def compare_sass(base: str) -> dict:
     for name, code in ours.items():
         if "ELi32EE" not in name:
             continue
-        twin = name.replace("ELi32EE", "EE")
+        # The same instance, or in a base tree without the tile parameter
+        # the kernel of the same streams.
+        twin = name if name in theirs else name.replace("ELi32EE", "EE")
         out[name] = twin in theirs and theirs[twin] == code
     return out
 

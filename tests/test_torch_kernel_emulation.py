@@ -253,6 +253,46 @@ def test_emulated_backward_workspace_size(lib):
     assert query(2, 1, [3, 20, 5]) == -1
 
 
+def _composite_bwd(lib, params, x, cot, order, lb, ub, max_blocks):
+    """B5 through the emulated library: (gradients per net, dh0)."""
+    n, a = x.shape
+    nets = [pack_params(params[k], CPU) for k in tvjp.NETS]
+    sizes = [p.numel() for p, _ in nets]
+    args, widths = [], []
+    for packed, dims in nets:
+        args += [packed.data_ptr(), _int_array(dims), len(dims) - 1]
+        widths += [_int_array(dims), len(dims) - 1]
+    per_block = lib.fused_composite_jet_bwd_workspace(a, order, *widths)
+    assert per_block >= 0
+    partial = torch.empty(max_blocks, sum(sizes))
+    workspace = torch.full((max(1, max_blocks * per_block),), float("nan"))
+    grad = torch.empty(sum(sizes))
+    dh0 = torch.empty(n, a)
+    err = lib.fused_composite_jet_bwd_launch(
+        x.data_ptr(), n, a, order, _float_array(lb), _float_array(ub),
+        *args, cot.data_ptr(), max_blocks, partial.data_ptr(),
+        grad.data_ptr(), dh0.data_ptr(), workspace.data_ptr(), None)
+    assert err == 0
+    grads = {k: tvjp._unpack_grads(flat, dims) for k, flat, (_, dims)
+             in zip(tvjp.NETS, torch.split(grad, sizes), nets)}
+    return grads, dh0
+
+
+def _check_composite_bwd(lib, params, x, cot, order, lb, ub, max_blocks):
+    """B5 against its float64 plain version, and two runs bitwise equal."""
+    grads, dh0 = _composite_bwd(lib, params, x, cot, order, lb, ub,
+                                max_blocks)
+    want, want_dh0 = tvjp.composite_jet_bwd_reference(
+        _f64(params), x.double(), cot.double(), order=order, lb=lb, ub=ub)
+    for k in tvjp.NETS:
+        for g, w in zip(tree_leaves(grads[k]), tree_leaves(want[k])):
+            _close(g, w)
+    _close(dh0, want_dh0)
+    again = _composite_bwd(lib, params, x, cot, order, lb, ub, max_blocks)
+    assert all(torch.equal(u, v) for u, v in
+               zip(tree_leaves(again), tree_leaves((grads, dh0))))
+
+
 @pytest.mark.parametrize("order", [1, 2])
 @pytest.mark.parametrize("a", [3, 4])
 def test_emulated_composite_backward_matches_plain(lib, a, order):
@@ -261,33 +301,67 @@ def test_emulated_composite_backward_matches_plain(lib, a, order):
     s = 1 + a + order - 1
     params = {"uv": _mlp(rng, [a, 16, 9, 5]), "dist": _mlp(rng, [a, 7, 5]),
               "part": _mlp(rng, [a, 6, 6, 5])}
-    nets = [pack_params(params[k], CPU) for k in tvjp.NETS]
-    sizes = [p.numel() for p, _ in nets]
-    args = []
-    for packed, dims in nets:
-        args += [packed.data_ptr(), _int_array(dims), len(dims) - 1]
     for n, max_blocks in ((37, 3), (8, 1)):
         x = _points(rng, n, a)
         cot = torch.as_tensor(rng.standard_normal((s, n, 5)),
                               dtype=torch.float32)
         for lb, ub in ((None, None), ((0.0,) * a, (0.5,) * (a - 1) + (10.0,))):
-            partial = torch.empty(max_blocks, sum(sizes))
-            grad = torch.empty(sum(sizes))
-            dh0 = torch.empty(n, a)
-            err = lib.fused_composite_jet_bwd_launch(
-                x.data_ptr(), n, a, order, _float_array(lb), _float_array(ub),
-                *args, cot.data_ptr(), max_blocks, partial.data_ptr(),
-                grad.data_ptr(), dh0.data_ptr(), None)
-            assert err == 0
-            want, want_dh0 = tvjp.composite_jet_bwd_reference(
-                _f64(params), x.double(), cot.double(), order=order, lb=lb,
-                ub=ub)
-            for k, flat, (_, dims) in zip(tvjp.NETS, torch.split(grad, sizes),
-                                          nets):
-                for g, w in zip(tree_leaves(tvjp._unpack_grads(flat, dims)),
-                                tree_leaves(want[k])):
-                    _close(g, w)
-            _close(dh0, want_dh0)
+            _check_composite_bwd(lib, params, x, cot, order, lb, ub,
+                                 max_blocks)
+
+
+PLATE_LB, PLATE_UB = (0.0, 0.0, 0.0), (0.5, 0.5, 10.0)
+# (uv widths, dist/part widths, order, normalised, n, max_blocks): the
+# net-BC plate nets (a 32-point tile with two weight buffers), raw and
+# normalised, and a 140-wide uv net, which takes a 16-point tile with one
+# weight buffer; ragged n, several tiles per block and several blocks.
+COMPOSITE_CASES = {
+    "plate_raw": ([3] + [70] * 8 + [5], [3] + [20] * 4 + [5], 2, False, 77, 2),
+    "plate_lb_ub": ([3] + [70] * 8 + [5], [3] + [20] * 4 + [5], 2, True, 77,
+                    2),
+    "uv_140_wide": ([3] + [140] * 3 + [5], [3] + [20] * 4 + [5], 1, True, 37,
+                    2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COMPOSITE_CASES))
+def test_emulated_composite_backward_at_plate_widths(lib, case):
+    """B5 at widths that pick each tile and buffer layout, on a ragged n
+    that is not a multiple of the tile, several tiles per block and several
+    blocks (so each block's workspace and partial offsets are used)."""
+    uv, small, order, norm, n, max_blocks = COMPOSITE_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    params = {"uv": _mlp(rng, uv), "dist": _mlp(rng, small),
+              "part": _mlp(rng, small)}
+    x = _points(rng, n, 3)
+    cot = torch.as_tensor(rng.standard_normal((3 + order, n, 5)),
+                          dtype=torch.float32)
+    lb, ub = (PLATE_LB, PLATE_UB) if norm else (None, None)
+    _check_composite_bwd(lib, params, x, cot, order, lb, ub, max_blocks)
+
+
+def test_emulated_composite_workspace_size(lib):
+    """The composite's per-block workspace holds the hidden outputs of its
+    deepest net (uv), all S streams, in rows of S * T + 4 floats: T = 32 at
+    the plate widths, 16 for a 140-wide uv net; -1 for nets the kernel does
+    not take."""
+    def query(a, order, uv, small, part=None):
+        widths = []
+        for dims in (uv, small, part or small):
+            widths += [_int_array(dims), len(dims) - 1]
+        return lib.fused_composite_jet_bwd_workspace(a, order, *widths)
+
+    uv, small = [3] + [70] * 8 + [5], [3] + [20] * 4 + [5]
+    assert query(3, 2, uv, small) == 8 * 70 * (5 * 32 + 4)
+    assert query(3, 1, uv, small) == 8 * 70 * (4 * 32 + 4)
+    assert query(4, 2, [4] + [70] * 8 + [5], [4, 20, 5]) == 8 * 70 * (6 * 32 + 4)
+    assert query(3, 2, [3] + [140] * 3 + [5], small) == 3 * 140 * (5 * 16 + 4)
+    assert query(3, 2, small, uv) == 8 * 70 * (5 * 32 + 4)   # deepest net
+    assert query(3, 2, [3, 2000, 5], small) == -1            # too wide
+    assert query(3, 2, uv, [4, 20, 5]) == -1                 # reads 4 coords
+    assert query(3, 2, uv, small, [3, 20, 7]) == -1          # head width
+    assert query(2, 2, [2, 20, 5], [2, 20, 5]) == -1         # a out of range
+    assert query(3, 3, uv, small) == -1                      # order
 
 
 @pytest.mark.parametrize("order", [1, 2])

@@ -239,4 +239,5 @@ def test_native_builds_one_library_of_both_sources(tmp_path, monkeypatch):
     assert len(sig["fused_composite_jet_launch"]) == 17
     assert len(sig["fused_mlp_jet_bwd_launch"]) == 17   # + workspace
     assert len(_native.QUERIES["fused_mlp_jet_bwd_workspace"][0]) == 4
-    assert len(sig["fused_composite_jet_bwd_launch"]) == 21
+    assert len(sig["fused_composite_jet_bwd_launch"]) == 22   # + workspace
+    assert len(_native.QUERIES["fused_composite_jet_bwd_workspace"][0]) == 8
