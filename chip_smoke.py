@@ -13,13 +13,14 @@ use only), then, in order:
    the card (B1 seeded at the Fourier64 plate widths, B1 raw-coordinate with
    lb/ub, B4 at the net-BC plate widths; order 1 and 2; N = 65,536 and
    1,000), and B1 at the wave-confined Fourier widths (128 -> 140 x 6 -> 7,
-   order 1, N = 1,000), which take a tile smaller than 32 points;
+   order 1, N = 1,000), which take a smaller tile than the plate nets;
 4. serves both quarter-plate models at full width (random weights from a
    numpy seed, through ``params_from_jax``) behind ``FieldServer`` and checks
    every answer against a direct evaluation, the direct evaluation against
    the plain float64 forward, and the launch counts of the kernels;
-5. times each forward kernel and its plain version with CUDA events, and
-   ``predict_fields`` of both models;
+5. times each forward kernel and its plain version with CUDA events beside
+   its bound, at N = 65,536, order 1 (serving) and N = 103,711, order 2
+   (the shape training launches), and ``predict_fields`` of both models;
 6. holds each backward kernel (B2 raw and with lb/ub, B3b seeded at the
    Fourier64 widths, B5 at the net-BC widths raw and with lb/ub) to its
    plain float64 version on the card, with random cotangents, at N =
@@ -71,7 +72,7 @@ ADAM_STEPS = 20
 ADAM_LR = 1e-3
 N_TRAIN = 103_711  # collocation points of plate_hole.build(scale=1.0)
 # The wave-confined hard-BC + Fourier64 net (cases/wave_confined.py), whose
-# buffers do not fit in shared memory at the forward kernel's 32 points.
+# buffers do not fit in shared memory at the plate nets' forward tiles.
 WAVE_DIMS = [2 * 64] + [140] * 6 + [7]
 
 
@@ -688,50 +689,70 @@ def main() -> int:
                                      f"differs from plain f64 by {worst_plain:.3e}")
     log(f"phase serving: {time.perf_counter() - t0:.2f} s")
 
-    # 5. Timings at N = 65,536, order 1.
+    # 5. Timings at N = 65,536, order 1 (serving), and of B1 and B4 at
+    # N = 103,711, order 2 (the shape training launches).
     t0 = time.perf_counter()
-    x = spacetime(rng, N_BIG, torch, dev)
-    with torch.no_grad():
-        h, d, _ = fourier._embed_jet(ana_p["uv"], x, 1)
-        mlp = ana_p["uv"]["mlp"]
-        timed = {
+    mlp = ana_p["uv"]["mlp"]
+    weight_bytes = {
+        "fused_mlp_jet": sum(t.numel() * 4 for layer in mlp
+                             for t in layer.values()),
+        "fused_composite_jet": sum(t.numel() * 4 for net in net_p.values()
+                                   for layer in net for t in layer.values()),
+    }
+    replaces = {
+        "fused_mlp_jet": "pinn_elastodynamics_tpu/kernels/fused_jet.py:116",
+        "fused_composite_jet":
+            "pinn_elastodynamics_tpu/kernels/fused_jet.py:125",
+    }
+
+    def forward_timed(n, order):
+        """name -> (kernel, plain, flops, bytes) at n points, this order."""
+        s = 3 + order
+        x = spacetime(rng, n, torch, dev)
+        h, d, dtt = fourier._embed_jet(ana_p["uv"], x, order)
+        seed = (h, d, dtt)[:2 if order == 1 else 3]
+        out_bytes = 4 * s * n * 5
+        return {
             "fused_mlp_jet": (
-                lambda: fj.fused_seed_jet_stack(mlp, h, d),
-                lambda: fj.fused_seed_jet_reference(mlp, h, d),
-                flops_per_point(four_dims, 4) * N_BIG,
-                (h.numel() + d.numel() + 4 * N_BIG * 5) * 4
-                + sum(t.numel() * 4 for layer in mlp for t in layer.values()),
-                "pinn_elastodynamics_tpu/kernels/fused_jet.py:116",
-            ),
+                lambda: fj.fused_seed_jet_stack(mlp, *seed),
+                lambda: fj.fused_seed_jet_reference(mlp, *seed),
+                flops_per_point(four_dims, s) * n,
+                4 * sum(t.numel() for t in seed) + out_bytes
+                + weight_bytes["fused_mlp_jet"]),
             "fused_composite_jet": (
-                lambda: fj.fused_composite_jet_stack(net_p, x, order=1),
-                lambda: fj.fused_composite_jet_reference(net_p, x, order=1),
-                sum(flops_per_point(dims, 4)
-                    for dims in (uv_dims, small_dims, small_dims)) * N_BIG,
-                (x.numel() + 4 * N_BIG * 5) * 4 + sum(
-                    t.numel() * 4 for net in net_p.values() for layer in net
-                    for t in layer.values()),
-                "pinn_elastodynamics_tpu/kernels/fused_jet.py:125",
-            ),
+                lambda: fj.fused_composite_jet_stack(net_p, x, order=order),
+                lambda: fj.fused_composite_jet_reference(net_p, x,
+                                                         order=order),
+                sum(flops_per_point(dims, s)
+                    for dims in (uv_dims, small_dims, small_dims)) * n,
+                4 * x.numel() + out_bytes
+                + weight_bytes["fused_composite_jet"]),
         }
-        kernels = []
-        for name, (kern, plain, flops, nbytes, replaces) in timed.items():
-            ms = time_cuda(torch, kern)
-            plain_ms = time_cuda(torch, plain)
-            op_ms = flops / F32_PEAK_FLOPS * 1e3
-            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
-            kernels.append({
-                "name": name, "route": "cuda",
-                "source": "pinn_elastodynamics_torch/kernels/csrc/fused_jet.cu",
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+
+    def time_forward(name, kern, plain, flops, nbytes, label):
+        ms = time_cuda(torch, kern)
+        plain_ms = time_cuda(torch, plain)
+        op_ms = flops / F32_PEAK_FLOPS * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {name} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
+        return {"ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(op_ms, byte_ms),
-                "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-                "library_ms": None,
-            })
+                "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+
+    with torch.no_grad():
+        serve = {name: time_forward(name, *args, f"n={N_BIG} order=1")
+                 for name, args in forward_timed(N_BIG, 1).items()}
+        train = {name: time_forward(name, *args, f"n={N_TRAIN} order=2")
+                 for name, args in forward_timed(N_TRAIN, 2).items()}
+    kernels = [{
+        "name": name, "route": "cuda",
+        "source": "pinn_elastodynamics_torch/kernels/csrc/fused_jet.cu",
+        "replaces": replaces[name], "launches": launches[name],
+        "max_abs_err": max_err[name], **serve[name],
+        f"n{N_TRAIN}_order2": train[name], "library_ms": None,
+    } for name in serve]
     xy = plate_points(rng, 4 * N_BIG)
     for name, ev in evaluators.items():
         model, params = ev.model, ev.params

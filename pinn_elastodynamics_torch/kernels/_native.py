@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
 The sources (``fused_jet.cu``: the forward jets; ``fused_jet_vjp.cu``: their
-backward) have a plain C interface.  Each is compiled by its own ``nvcc -c``
+backward; both on the device functions of ``jet_wide.cuh``) have a plain C
+interface.  Each is compiled by its own ``nvcc -c``
 (``-split-compile``: its kernels in parallel), all started together, and one
 more ``nvcc`` links the objects into one shared library, loaded with
 ``ctypes``; no PyTorch header is involved.  The library is built at first use into
@@ -26,7 +27,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fused_jet.cu", CSRC / "fused_jet_vjp.cu")
-HEADERS = (CSRC / "jet_common.cuh",)
+HEADERS = (CSRC / "jet_common.cuh", CSRC / "jet_wide.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -20,27 +20,50 @@
 //
 // What bounds it on an H100: operations.  A point costs 2 * S * sum(fan_in *
 // fan_out) FLOPs (about 0.3 MFLOP for the plate nets at S = 4) against 12 to
-// 24 bytes of input and 100 bytes of output, so the f32 CUDA-core rate is the
-// roofline.  The design keeps every operand of the FMAs on chip: one block
-// owns a tile of T points, holds the activations of all S streams of the
-// tile in shared memory (two ping-pong buffers plus the seed), and stages
-// each layer's weights into shared memory before the layer runs.  A thread
-// computes one output neuron for PG consecutive points of every stream, so
-// each weight it loads feeds S * PG FMAs and each float4 of activations
-// feeds PG, with the activation loads of a warp broadcast (its lanes share
-// the points and differ in the neuron).  The 128-lane padding and VMEM
-// blocking of the TPU kernels are not carried over: shared memory holds the
-// true widths.
+// 24 bytes of input (512 to 640 for a Fourier seed) and 80 to 100 bytes of
+// output, so the f32 CUDA-core rate is the roofline.  What holds a kernel
+// below it is shared memory and latency: a float4 of activations loaded
+// from shared memory feeds 4 FMAs per output feature of the item, and the
+// tile's accumulators (features x streams x points) must spread over enough
+// warps to hide the loads.
 //
-// Shared-memory layout: a buffer of width W holds W rows of length RS =
-// S * T + 4, element [k * RS + s * T + p] being input feature k of stream s
-// at point p of the tile.  The 4-float pad spreads the float4 stores of
-// neighbouring neurons over all banks.
+// The design is the wide-tile layer of jet_wide.cuh, the device functions
+// the backward kernels of fused_jet_vjp.cu run for their remat: each net
+// goes through remat_net (saving nothing) and head_forward.  A block owns a
+// tile of T points with all S streams in shared memory and stages each
+// layer's weights by cp.async into one of two buffers while the previous
+// layer runs.  Products are register blocked: an item computes F output
+// features for 4 points of every stream (narrow layers, such as the 20-wide
+// dist and part nets and the heads, take one feature), each output as the
+// same sequential fmaf chain over the layer's inputs as a one-feature
+// kernel computes, so the item shape does not change a bit of the result.
+// What the forward does beyond the backward's remat is about tile size.
+// It keeps no layer past the next, so its activations ping-pong between two
+// row buffers (FWD_NB) instead of the backward's three, and the freed shared
+// memory buys larger tiles, hence more items per layer.  The time of a
+// layer follows the most warps any of the SM's four schedulers runs, times
+// the cost of one item (about proportional to its features): so each
+// kernel's design (Design below) pairs a tile and an item width whose items
+// fill whole warps spread evenly over the schedulers, at the tile's
+// register budget.  mlp_jet_kernel: 56-point tiles of 4-feature items (8
+// warps at 70 features) with four streams; with five, 64-point tiles of
+// 3-feature items (12 warps), or 40 points for a 128-wide Fourier seed,
+// whose buffers fit no more.  composite_jet_kernel: 64-point tiles of
+// 3-feature items.  scripts/torch_fwd_sweep.py times these against the
+// alternatives (PERF.md).  mlp_jet_kernel gathers its seed into act[0]'s
+// row buffer and writes the head into act[L]'s; composite_jet_kernel
+// builds the seed of raw (or normalised) x once per tile into a buffer of
+// its own, runs uv, dist and part into three head buffers (the weight
+// buffers are keyed by net and layer) and combines them.  The launchers
+// start one block per tile; the kernels also walk tiles b, b + G, ... for a
+// smaller grid G, which the sweep times (0.96 to 1.03 of one block per
+// tile, no side ahead).
 //
-// The tile is chosen at launch: the largest of 32, 16 and 8 points whose
-// buffers fit in shared memory.  The plate nets take 32; wider nets, such
-// as a 140-wide Fourier net, a smaller tile.  T is a template parameter, so
-// each tile compiles to the same code a fixed tile would.
+// The tile is chosen at launch: the first of the design's tiles whose
+// buffers fit in shared memory (the 140-wide wave-confined net takes 32),
+// with two weight buffers where they fit.
+// T is a template parameter, so each tile compiles to the same code a fixed
+// tile would.
 //
 // The launchers take device pointers, sizes and a cudaStream_t, launch on
 // that stream without synchronising, and return cudaGetLastError().  They
@@ -48,246 +71,214 @@
 // 1 or 2, and nets of at most MAX_LAYERS layers; anything else, or a net too
 // wide for shared memory even at T = 8, returns cudaErrorInvalidValue.
 
-#include "jet_common.cuh"
+#include "jet_wide.cuh"
+
+#include <type_traits>
 
 namespace {
 
-constexpr int PG = 4;           // points per thread item (one float4)
+// The design of each kernel: output features per item of a wide layer,
+// the most threads a block may have (its launch bound), and the tiles a
+// launch may take, largest first (scripts/torch_fwd_sweep.py times the
+// alternatives; PERF.md).
+template <int F, int THREADS, int... Ts>
+struct Design {
+  static constexpr int fb = F;
+  static constexpr int threads = THREADS;
+  static constexpr int tiles[] = {Ts..., 0};
+};
 
-// Layer recurrence of one net over the tile held in `x` (width dims[0]).
-// Hidden layers ping-pong between p0 and p1; the head writes `fin`
-// (width dims[L]).  All buffers use row stride rs.
-template <int S, bool DTT, int TILE>
-__device__ void run_net(const Net& net, const float* x, float* p0, float* p1,
-                        float* ws, float* bs, float* fin, int rs) {
-  constexpr int NT = S - 1 - (DTT ? 1 : 0);  // tangent streams
-  const float* in = x;
-  for (int l = 0; l < net.n_layers; ++l) {
-    const int fi = net.dims[l];
-    const int fo = net.dims[l + 1];
-    const bool last = (l == net.n_layers - 1);
-    float* dst = last ? fin : ((l & 1) ? p1 : p0);
-    __syncthreads();  // the previous layer is done with ws and with dst
-    const float* wg = net.w[l];
-    for (int i = threadIdx.x; i < fi * fo; i += blockDim.x) ws[i] = wg[i];
-    for (int i = threadIdx.x; i < fo; i += blockDim.x) bs[i] = net.b[l][i];
-    __syncthreads();
+using MlpDesign4 = Design<4, 256, 56, 48, 32, 16, 8>;   // four streams
+using MlpDesign5 = Design<3, 384, 64, 40, 32, 16, 8>;   // five or six
+using CompositeDesign = Design<3, 384, 64, 56, 48, 32, 16, 8>;
 
-    const int items = fo * (TILE / PG);
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-      const int j = it % fo;
-      const int q0 = (it / fo) * PG;
-      float acc[S][PG];
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-#pragma unroll
-        for (int q = 0; q < PG; ++q) acc[s][q] = 0.0f;
+template <int S>
+using MlpDesign = std::conditional_t<S <= 4, MlpDesign4, MlpDesign5>;
+constexpr int FWD_NB = 2;  // row buffers: act[m] in buffer m % 2
 
-      const float* col = in + q0;
-      for (int k = 0; k < fi; ++k) {
-        const float w = ws[k * fo + j];
-        const float* row = col + k * rs;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float4 a = *reinterpret_cast<const float4*>(row + s * TILE);
-          acc[s][0] = fmaf(a.x, w, acc[s][0]);
-          acc[s][1] = fmaf(a.y, w, acc[s][1]);
-          acc[s][2] = fmaf(a.z, w, acc[s][2]);
-          acc[s][3] = fmaf(a.w, w, acc[s][3]);
-        }
-      }
-
-      const float bj = bs[j];
-#pragma unroll
-      for (int q = 0; q < PG; ++q) {
-        if (last) {
-          acc[0][q] += bj;
-        } else {
-          const float h = tanhf(acc[0][q] + bj);
-          const float g = 1.0f - h * h;
-          if (DTT) {
-            const float zt = acc[NT][q];
-            acc[S - 1][q] = g * acc[S - 1][q] - 2.0f * h * g * (zt * zt);
-          }
-#pragma unroll
-          for (int s = 1; s <= NT; ++s) acc[s][q] *= g;
-          acc[0][q] = h;
-        }
-      }
-      float* out = dst + j * rs + q0;
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        *reinterpret_cast<float4*>(out + s * TILE) =
-            make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
-    }
-    in = dst;
-  }
-  __syncthreads();
-}
-
-template <int S, bool DTT, int TILE>
-__global__ void mlp_jet_kernel(const float* __restrict__ seed_f,
-                               const float* __restrict__ seed_d,
-                               const float* __restrict__ seed_tt, int n,
-                               Net net, int hid, int wmax,
-                               float* __restrict__ out, int rs) {
+template <int S, bool DTT, int T>
+__global__ void __launch_bounds__(MlpDesign<S>::threads, 1)
+mlp_jet_kernel(const float* __restrict__ seed_f,
+               const float* __restrict__ seed_d,
+               const float* __restrict__ seed_tt, int n, Net net,
+               wide::Layout lay, float* __restrict__ out) {
+  using namespace wide;
+  constexpr int F = MlpDesign<S>::fb;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const int L = net.n_layers;
   const int e = net.dims[0];
-  const int c = net.dims[net.n_layers];
-  float* x = smem;
-  float* p0 = x + e * rs;
-  float* p1 = p0 + hid * rs;
-  float* fin = p1 + hid * rs;
-  float* ws = fin + c * rs;
-  float* bs = ws + ((wmax + 3) & ~3);
+  const int c = net.dims[L];
+  const int rs = lay.rs;
+  float* fin = smem + lay.buf[row_buffer<FWD_NB>(L, L)];  // act[L], the head
+  int held[2] = {-1, -1};
+  auto no_cot = [](float*) {};
 
-  const int n0 = blockIdx.x * TILE;
-  const int nvalid = min(TILE, n - n0);
-  for (int i = threadIdx.x; i < S * TILE * e; i += blockDim.x) {
-    const int k = i % e;
-    const int sp = i / e;
-    const int p = sp % TILE;
-    const int s = sp / TILE;
-    float v = 0.0f;
-    if (p < nvalid) {
-      const size_t pt = static_cast<size_t>(n0 + p) * e + k;
-      if (s == 0)
-        v = seed_f[pt];
-      else if (DTT && s == S - 1)
-        v = seed_tt[pt];
-      else
-        v = seed_d[static_cast<size_t>(s - 1) * n * e + pt];
+  const int tiles = (n + T - 1) / T;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = tile * T;
+    const int nvalid = min(T, n - n0);
+    auto seed = [&](float* dst) -> const float* {
+      gather_seed<S, DTT, T>(seed_f, seed_d, seed_tt, n, n0, nvalid, e, rs,
+                             dst);
+      return dst;
+    };
+    __syncthreads();  // the previous tile is done with shared memory
+    const float* s0 = remat_net<S, DTT, T, F, FWD_NB>(
+        net, 0, lay, smem, held, nullptr, seed, no_cot);
+    head_forward<S, DTT, T, F, FWD_NB>(net, 0, lay, smem, held, s0, fin);
+    __syncthreads();
+    for (int i = threadIdx.x; i < S * T * c; i += blockDim.x) {
+      const int ch = i % c;
+      const int p = (i / c) % T;
+      const int s = i / (c * T);
+      if (p < nvalid)
+        out[(static_cast<size_t>(s) * n + n0 + p) * c + ch] =
+            fin[ch * rs + s * T + p];
     }
-    x[k * rs + s * TILE + p] = v;
-  }
-
-  run_net<S, DTT, TILE>(net, x, p0, p1, ws, bs, fin, rs);
-
-  for (int i = threadIdx.x; i < S * TILE * c; i += blockDim.x) {
-    const int ch = i % c;
-    const int sp = i / c;
-    const int p = sp % TILE;
-    const int s = sp / TILE;
-    if (p < nvalid)
-      out[(static_cast<size_t>(s) * n + n0 + p) * c + ch] =
-          fin[ch * rs + s * TILE + p];
   }
 }
 
-template <int S, bool DTT, int TILE>
-__global__ void composite_jet_kernel(const float* __restrict__ xg, int n,
-                                     int a, Norm norm, Net nu, Net nd, Net np,
-                                     int hid, int wmax, float* __restrict__ out,
-                                     int rs) {
+template <int S, bool DTT, int T>
+__global__ void __launch_bounds__(CompositeDesign::threads, 1)
+composite_jet_kernel(const float* __restrict__ xg, int n, int a, Norm norm,
+                     Net nu, Net nd, Net np, wide::Layout lay,
+                     float* __restrict__ out) {
+  using namespace wide;
+  constexpr int NT = S - 1 - (DTT ? 1 : 0);
+  constexpr int F = CompositeDesign::fb;
+  enum { UV, DIST, PART };
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int NT = S - 1 - (DTT ? 1 : 0);
+  const int rs = lay.rs;
   const int c = nu.dims[nu.n_layers];
-  float* x = smem;
-  float* p0 = x + a * rs;
-  float* p1 = p0 + hid * rs;
-  float* fu = p1 + hid * rs;
+  float* fu = smem + lay.extra;  // the three nets' output jets
   float* fd = fu + c * rs;
   float* fp = fd + c * rs;
-  float* ws = fp + c * rs;
-  float* bs = ws + ((wmax + 3) & ~3);
+  float* s0 = fp + c * rs;       // seed streams, width a
+  int held[2] = {-1, -1};
+  auto seed = [&](float*) -> const float* { return s0; };
+  auto no_cot = [](float*) {};
 
-  // Seed of raw (or normalized) coordinates: value, identity tangents
-  // (scaled by the normalization), zero dtt.
-  const int n0 = blockIdx.x * TILE;
-  const int nvalid = min(TILE, n - n0);
-  for (int i = threadIdx.x; i < S * TILE * a; i += blockDim.x) {
-    const int k = i % a;
-    const int sp = i / a;
-    const int p = sp % TILE;
-    const int s = sp / TILE;
-    float v = 0.0f;
-    if (s > 0 || p < nvalid)
-      v = seed_value(norm, s, k, NT,
-                     s == 0 ? xg[static_cast<size_t>(n0 + p) * a + k] : 0.0f);
-    x[k * rs + s * TILE + p] = v;
-  }
-
-  run_net<S, DTT, TILE>(nu, x, p0, p1, ws, bs, fu, rs);
-  run_net<S, DTT, TILE>(nd, x, p0, p1, ws, bs, fd, rs);
-  run_net<S, DTT, TILE>(np, x, p0, p1, ws, bs, fp, rs);
-
-  for (int i = threadIdx.x; i < TILE * c; i += blockDim.x) {
-    const int ch = i % c;
-    const int p = i / c;
-    if (p >= nvalid) continue;
-    const float* u = fu + ch * rs + p;
-    const float* d = fd + ch * rs + p;
-    const float* q = fp + ch * rs + p;
-    const float uf = u[0];
-    const float df = d[0];
-    const size_t base = static_cast<size_t>(n0 + p) * c + ch;
-    const size_t sstride = static_cast<size_t>(n) * c;
-    out[base] = q[0] + df * uf;
-#pragma unroll
-    for (int s = 1; s <= NT; ++s) {
-      const int r = s * TILE;
-      out[s * sstride + base] = q[r] + d[r] * uf + df * u[r];
+  const int tiles = (n + T - 1) / T;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = tile * T;
+    const int nvalid = min(T, n - n0);
+    __syncthreads();  // the previous tile is done with shared memory
+    // Seed of raw (or normalised) coordinates: value, identity tangents
+    // (scaled by the normalisation), zero dtt.
+    for (int i = threadIdx.x; i < S * T * a; i += blockDim.x) {
+      const int k = i % a;
+      const int p = (i / a) % T;
+      const int s = i / (a * T);
+      s0[k * rs + s * T + p] =
+          p < nvalid
+              ? seed_value(norm, s, k, NT,
+                           s == 0 ? xg[static_cast<size_t>(n0 + p) * a + k]
+                                  : 0.0f)
+              : 0.0f;
     }
-    if (DTT) {
-      const int t = NT * TILE;
-      const int r = (S - 1) * TILE;
-      out[(S - 1) * sstride + base] =
-          q[r] + d[r] * uf + 2.0f * d[t] * u[t] + df * u[r];
+    remat_net<S, DTT, T, F, FWD_NB>(nu, UV, lay, smem, held, nullptr,
+                                    seed, no_cot);
+    head_forward<S, DTT, T, F, FWD_NB>(nu, UV, lay, smem, held, s0, fu);
+    __syncthreads();
+    remat_net<S, DTT, T, F, FWD_NB>(nd, DIST, lay, smem, held, nullptr,
+                                    seed, no_cot);
+    head_forward<S, DTT, T, F, FWD_NB>(nd, DIST, lay, smem, held, s0, fd);
+    __syncthreads();
+    remat_net<S, DTT, T, F, FWD_NB>(np, PART, lay, smem, held, nullptr,
+                                    seed, no_cot);
+    head_forward<S, DTT, T, F, FWD_NB>(np, PART, lay, smem, held, s0, fp);
+    __syncthreads();
+
+    for (int i = threadIdx.x; i < T * c; i += blockDim.x) {
+      const int ch = i % c;
+      const int p = i / c;
+      if (p >= nvalid) continue;
+      const float* u = fu + ch * rs + p;
+      const float* d = fd + ch * rs + p;
+      const float* q = fp + ch * rs + p;
+      const float uf = u[0];
+      const float df = d[0];
+      const size_t base = static_cast<size_t>(n0 + p) * c + ch;
+      const size_t sstride = static_cast<size_t>(n) * c;
+      out[base] = q[0] + df * uf;
+#pragma unroll
+      for (int s = 1; s <= NT; ++s) {
+        const int r = s * T;
+        out[s * sstride + base] = q[r] + d[r] * uf + df * u[r];
+      }
+      if (DTT) {
+        const int t = NT * T;
+        const int r = (S - 1) * T;
+        out[(S - 1) * sstride + base] =
+            q[r] + d[r] * uf + 2.0f * d[t] * u[t] + df * u[r];
+      }
     }
   }
 }
 
-int block_threads(const Net* nets, int count, int tile) {
-  int widest = 1;
-  for (int i = 0; i < count; ++i)
-    for (int l = 1; l <= nets[i].n_layers; ++l)
-      widest = std::max(widest, nets[i].dims[l]);
-  return std::min(1024, std::max(64, round_up(widest * (tile / PG), 32)));
+using MlpKernel = void (*)(const float*, const float*, const float*, int, Net,
+                           wide::Layout, float*);
+using CompositeKernel = void (*)(const float*, int, int, Norm, Net, Net, Net,
+                                 wide::Layout, float*);
+
+// The instance of tile t, one of the design's tiles.
+template <int S, bool DTT, int F, int TH, int... Ts>
+MlpKernel mlp_kernel(int t, Design<F, TH, Ts...>) {
+  MlpKernel k = nullptr;
+  ((k = t == Ts ? mlp_jet_kernel<S, DTT, Ts> : k), ...);
+  return k;
+}
+
+template <int S, bool DTT, int F, int TH, int... Ts>
+CompositeKernel composite_kernel(int t, Design<F, TH, Ts...>) {
+  CompositeKernel k = nullptr;
+  ((k = t == Ts ? composite_jet_kernel<S, DTT, Ts> : k), ...);
+  return k;
+}
+
+// The layouts: one net, or the composite's three nets, then its fu, fd and
+// fp buffers (head width each) and its seed (width a).
+template <int S>
+size_t mlp_layout(const Net& net, wide::Layout* lay) {
+  using D = MlpDesign<S>;
+  return wide_layout(&net, 1, S, 0, 0, lay, D::fb, D::tiles, FWD_NB,
+                     D::threads);
+}
+
+size_t composite_layout(const Net* nets, int s, int a, wide::Layout* lay) {
+  return wide_layout(nets, 3, s, 3 * nets[0].dims[nets[0].n_layers] + a, 0,
+                     lay, CompositeDesign::fb, CompositeDesign::tiles, FWD_NB,
+                     CompositeDesign::threads);
 }
 
 template <int S, bool DTT>
 int launch_mlp(const float* sf, const float* sd, const float* stt, int n,
                const Net& net, float* out, cudaStream_t stream) {
-  int hid = 0, wmax = 0, bmax = 0;
-  net_sizes(net, &hid, &wmax, &bmax);
-  const int c = net.dims[net.n_layers];
-  size_t bytes = 0;
-  const int t = pick_tile(S, net.dims[0] + 2L * hid + c,
-                          round_up(wmax, 4) + bmax, 32, 8, &bytes);
-  if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int rs = S * t + 4;
-  const auto kern = t == 32   ? mlp_jet_kernel<S, DTT, 32>
-                    : t == 16 ? mlp_jet_kernel<S, DTT, 16>
-                              : mlp_jet_kernel<S, DTT, 8>;
+  wide::Layout lay;
+  const size_t bytes = mlp_layout<S>(net, &lay);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = mlp_kernel<S, DTT>(lay.T, MlpDesign<S>());
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(bytes));
-  const int blocks = (n + t - 1) / t;
-  kern<<<blocks, block_threads(&net, 1, t), bytes, stream>>>(
-      sf, sd, stt, n, net, hid, wmax, out, rs);
+  const int blocks = (n + lay.T - 1) / lay.T;  // one tile per block
+  kern<<<blocks, lay.threads, bytes, stream>>>(sf, sd, stt, n, net, lay, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int S, bool DTT>
 int launch_composite(const float* x, int n, int a, const Norm& norm,
                      const Net* nets, float* out, cudaStream_t stream) {
-  int hid = 0, wmax = 0, bmax = 0;
-  for (int i = 0; i < 3; ++i) net_sizes(nets[i], &hid, &wmax, &bmax);
-  const int c = nets[0].dims[nets[0].n_layers];
-  size_t bytes = 0;
-  const int t = pick_tile(S, a + 2L * hid + 3L * c, round_up(wmax, 4) + bmax,
-                          32, 8, &bytes);
-  if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int rs = S * t + 4;
-  const auto kern = t == 32   ? composite_jet_kernel<S, DTT, 32>
-                    : t == 16 ? composite_jet_kernel<S, DTT, 16>
-                              : composite_jet_kernel<S, DTT, 8>;
+  wide::Layout lay;
+  const size_t bytes = composite_layout(nets, S, a, &lay);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = composite_kernel<S, DTT>(lay.T, CompositeDesign());
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(bytes));
-  const int blocks = (n + t - 1) / t;
-  kern<<<blocks, block_threads(nets, 3, t), bytes, stream>>>(
-      x, n, a, norm, nets[0], nets[1], nets[2], hid, wmax, out, rs);
+  const int blocks = (n + lay.T - 1) / lay.T;  // one tile per block
+  kern<<<blocks, lay.threads, bytes, stream>>>(
+      x, n, a, norm, nets[0], nets[1], nets[2], lay, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -91,32 +91,6 @@ __host__ __device__ inline size_t net_params(const Net& net) {
   return p;
 }
 
-// Widest hidden layer and largest weight matrix of a net.
-void net_sizes(const Net& net, int* hid, int* wmax, int* bmax) {
-  for (int l = 0; l < net.n_layers; ++l) {
-    if (l > 0) *hid = std::max(*hid, net.dims[l]);
-    *wmax = std::max(*wmax, net.dims[l] * net.dims[l + 1]);
-    *bmax = std::max(*bmax, net.dims[l + 1]);
-  }
-}
-
-// The largest tile, halving from `largest` points to `smallest`, whose
-// `rows` shared rows of S * T + 4 floats and `extra` other floats fit in
-// shared memory; its bytes go to *bytes.  0 if none fits.
-int pick_tile(int s, long rows, long extra, int largest, int smallest,
-              size_t* bytes) {
-  for (int t = largest; t >= smallest; t /= 2) {
-    const size_t b =
-        static_cast<size_t>(rows * (static_cast<long>(s) * t + 4) + extra) *
-        sizeof(float);
-    if (b <= static_cast<size_t>(MAX_SMEM)) {
-      *bytes = b;
-      return t;
-    }
-  }
-  return 0;
-}
-
 // lb/ub of the composite launchers: both null for raw coordinates.
 Norm make_norm(const float* lb, const float* ub, int a) {
   Norm norm;

@@ -39,29 +39,33 @@ def build(tmp: str) -> list:
     from pinn_elastodynamics_torch.kernels import _native
 
     nvcc = _native._nvcc()
-    for header in _native.HEADERS:
-        with open(header) as f, open(os.path.join(tmp, header.name), "w") as g:
-            g.write(f.read())
     fwd, bwd = _native.SOURCES
     fwd_obj = os.path.join(tmp, "fwd.o")
-    jobs = [subprocess.Popen([nvcc, *_native.NVCC_FLAGS, "-I", tmp, "-c",
-                              "-o", fwd_obj, str(fwd)])]
+    jobs = [subprocess.Popen([nvcc, *_native.NVCC_FLAGS, "-c", "-o", fwd_obj,
+                              str(fwd)])]
+    # FB and MAX_THREADS are in jet_wide.cuh, KB and JB in the source: each
+    # variant compiles from a directory of its own copies.
+    files = {path.name: path.read_text() for path in (bwd, *_native.HEADERS)}
     objs = []
-    text = bwd.read_text()
     for i, (fb, kb, jb, mt) in enumerate(VARIANTS):
-        src = text
+        d = os.path.join(tmp, f"v{i}")
+        os.makedirs(d)
+        texts = dict(files)
         for name, value in (("FB", fb), ("KB", kb), ("JB", jb),
                             ("MAX_THREADS", mt)):
-            src, n = re.subn(rf"^constexpr int {name} = \d+;",
-                             f"constexpr int {name} = {value};", src,
-                             flags=re.M)
-            assert n == 1, name
-        path = os.path.join(tmp, f"v{i}.cu")
-        with open(path, "w") as f:
-            f.write(src)
-        objs.append(os.path.join(tmp, f"v{i}.o"))
-        jobs.append(subprocess.Popen([nvcc, *_native.NVCC_FLAGS, "-I", tmp,
-                                      "-c", "-o", objs[-1], path]))
+            hits = 0
+            for fname, text in texts.items():
+                texts[fname], n = re.subn(
+                    rf"^constexpr int {name} = \d+;",
+                    f"constexpr int {name} = {value};", text, flags=re.M)
+                hits += n
+            assert hits == 1, name
+        for fname, text in texts.items():
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(text)
+        objs.append(os.path.join(d, "bwd.o"))
+        jobs.append(subprocess.Popen([nvcc, *_native.NVCC_FLAGS, "-c", "-o",
+                                      objs[-1], os.path.join(d, bwd.name)]))
     if any(job.wait(timeout=900) != 0 for job in jobs):
         raise RuntimeError("a variant failed to build")
     libs = []

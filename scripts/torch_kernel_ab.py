@@ -12,8 +12,10 @@ runs each kernel once and hashes its outputs, then times it with CUDA events
 (median of ``--runs`` launches after warm-up):
 
 * B1 ``fused_mlp_jet``, seeded at the Fourier64 plate widths (128 -> 8 x 70
-  -> 5), N = 65,536, order 1;
-* B4 ``fused_composite_jet``, the net-BC plate nets, N = 65,536, order 1;
+  -> 5), N = 65,536, order 1 (serving), and N = 103,711, order 2
+  (``fused_mlp_jet_train``, the shape training launches);
+* B4 ``fused_composite_jet``, the net-BC plate nets, N = 65,536, order 1,
+  and N = 103,711, order 2 (``fused_composite_jet_train``);
 * B2 ``fused_mlp_jet_bwd``, 3 -> 8 x 70 -> 5, N = 103,711, order 2;
 * B3b ``fused_seed_jet_bwd``, Fourier64 widths, N = 103,711, order 2;
 * B5 ``fused_composite_jet_bwd``, net-BC nets, N = 103,711, order 2.
@@ -21,10 +23,11 @@ runs each kernel once and hashes its outputs, then times it with CUDA events
 It prints the card, each run's times, and one JSON line: per kernel the
 base and changed times (the mean of each tree's two medians), their ratio,
 and whether the two trees' outputs are bitwise equal.  With ``--sass`` it
-also compiles both trees' ``fused_jet.cu`` and reports, per forward kernel
-instance of this tree's 32-point tile, whether its machine code (``cuobjdump
--sass``, addresses and encodings stripped) equals the base tree's kernel of
-the same streams.  It imports no JAX.
+also compiles both trees' ``fused_jet.cu`` and ``fused_jet_vjp.cu`` and
+reports, per kernel instance of this tree (keyed by its demangled name
+without the parameter list), whether its machine code (``cuobjdump -sass``,
+addresses and encodings stripped) equals the base tree's instance of the
+same name, or null where the base has none.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -109,6 +112,9 @@ def worker(tree: str, runs: int) -> dict:
         "fused_mlp_jet": lambda: fj.fused_seed_jet_stack(tail, *sf[:2]),
         "fused_composite_jet": lambda: fj.fused_composite_jet_stack(
             net, xf, order=1),
+        "fused_mlp_jet_train": lambda: fj.fused_seed_jet_stack(tail, *sb),
+        "fused_composite_jet_train": lambda: fj.fused_composite_jet_stack(
+            net, xb, order=2),
         "fused_mlp_jet_bwd": lambda: fv.fused_mlp_jet_bwd(
             raw, *raw_seed, cot, full_dx=False),
         "fused_seed_jet_bwd": lambda: fv.fused_mlp_jet_bwd(
@@ -134,46 +140,65 @@ def worker(tree: str, runs: int) -> dict:
     return out
 
 
-def _sass(tree: str, tmp: str) -> dict:
-    """Instruction text of each kernel in a tree's fused_jet.cu, keyed by a
-    name without the file hash of the anonymous namespace."""
+def _cubin_jobs(tree: str, tmp: str) -> list:
+    """Start compiling a tree's two sources to cubins: [(path, process)]."""
     from pinn_elastodynamics_torch.kernels import _native
 
-    cubin = os.path.join(tmp, f"{abs(hash(tree))}.cubin")
-    src = os.path.join(tree, "pinn_elastodynamics_torch", "kernels", "csrc",
-                       "fused_jet.cu")
     flags = [f for f in _native.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
-    subprocess.run([_native._nvcc(), *flags, "-cubin", "-o", cubin, src],
-                   check=True, capture_output=True, timeout=600)
-    cuobjdump = shutil.which("cuobjdump") or os.path.join(
-        os.path.dirname(_native._nvcc()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", cubin], check=True,
-                          capture_output=True, text=True, timeout=120).stdout
-    kernels, name = {}, None
-    for line in text.splitlines():
-        head = re.match(r"\s*Function : (\S+)", line)
-        if head:
-            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", head.group(1))
-            kernels[name] = []
-        elif name and "/*" in line and ";" in line:
-            ins = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line.split(";")[0])
-            kernels[name].append(" ".join(ins.split()))
+    jobs = []
+    for source in ("fused_jet.cu", "fused_jet_vjp.cu"):
+        cubin = os.path.join(tmp, f"{abs(hash(tree))}_{source}.cubin")
+        src = os.path.join(tree, "pinn_elastodynamics_torch", "kernels",
+                           "csrc", source)
+        jobs.append((cubin, subprocess.Popen(
+            [_native._nvcc(), *flags, *_native.SPLIT_FLAGS, "-cubin", "-o",
+             cubin, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return jobs
+
+
+def _sass(jobs: list) -> dict:
+    """Instruction text of each kernel in the cubins, keyed by its demangled
+    name up to the parameter list."""
+    from pinn_elastodynamics_torch.kernels import _native
+
+    bindir = os.path.dirname(_native._nvcc())
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(bindir, "cuobjdump")
+    filt = shutil.which("cu++filt") or os.path.join(bindir, "cu++filt")
+    kernels = {}
+    for cubin, job in jobs:
+        log, _ = job.communicate(timeout=900)
+        if job.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {cubin}:\n{log}")
+        text = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        name = None
+        for line in text.splitlines():
+            head = re.match(r"\s*Function : (\S+)", line)
+            if head:
+                name = subprocess.run([filt, head.group(1)], check=True,
+                                      capture_output=True, text=True,
+                                      timeout=30).stdout.strip()
+                # Drop the parameter list: what follows the template's ">".
+                name = name.split(">(")[0] + ">" if ">(" in name else \
+                    name.split("(")[0]
+                kernels[name] = []
+            elif name and "/*" in line and ";" in line:
+                ins = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line.split(";")[0])
+                kernels[name].append(" ".join(ins.split()))
     return kernels
 
 
 def compare_sass(base: str) -> dict:
-    """Per 32-point forward kernel of this tree: equal to the base's?"""
+    """Per kernel instance of this tree: equal to the base's instance of the
+    same name (null where the base has none)?"""
     with tempfile.TemporaryDirectory() as tmp:
-        ours, theirs = _sass(HERE, tmp), _sass(os.path.abspath(base), tmp)
-    out = {}
-    for name, code in ours.items():
-        if "ELi32EE" not in name:
-            continue
-        # The same instance, or in a base tree without the tile parameter
-        # the kernel of the same streams.
-        twin = name if name in theirs else name.replace("ELi32EE", "EE")
-        out[name] = twin in theirs and theirs[twin] == code
-    return out
+        ours = _cubin_jobs(HERE, tmp)
+        theirs = _cubin_jobs(os.path.abspath(base), tmp)
+        ours, theirs = _sass(ours), _sass(theirs)
+    return {name: (theirs[name] == code if name in theirs else None)
+            for name, code in sorted(ours.items())}
 
 
 def card() -> str:
@@ -188,7 +213,7 @@ def main() -> int:
     ap.add_argument("--base", help="the other tree")
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--sass", action="store_true",
-                    help="also compare the forward kernels' machine code")
+                    help="also compare every kernel's machine code")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -229,7 +254,10 @@ def main() -> int:
     result = {"card": card(), "kernels": summary}
     if args.sass:
         sys.path.insert(0, HERE)
-        result["forward_sass_equal"] = compare_sass(args.base)
+        try:
+            result["sass_equal"] = compare_sass(args.base)
+        except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+            result["sass_equal"] = {"error": str(exc)[-2000:]}
     print(json.dumps(result), flush=True)
     return 0
 

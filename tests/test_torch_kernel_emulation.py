@@ -29,6 +29,7 @@ from pinn_elastodynamics_torch.kernels.fused_jet import (
     _int_array,
     pack_params,
 )
+from pinn_elastodynamics_torch.models.mlp import seed_jet
 from pinn_elastodynamics_torch.utils.tree import tree_leaves
 
 TOL = 2e-4  # f32 against the f64 plain version: tests/test_fused_vjp.py
@@ -407,15 +408,15 @@ def test_emulated_forward_kernels_match_plain(lib, order):
 
 def test_emulated_forward_kernel_fits_a_wide_net(lib):
     """B1 at the wave-confined Fourier widths (128 -> 140 x 6 -> 7, order
-    1), whose buffers do not fit in shared memory at 32 points: the launch
-    takes a smaller tile and still matches the plain version on a ragged n."""
+    1), whose two row buffers of 140 rows do not fit in shared memory at the
+    plate nets' 56 or 48 points: the launch takes a smaller tile and still
+    matches the plain version on a ragged n."""
     rng = np.random.default_rng(33)
     n, a, e = 37, 3, 128
     params = _mlp(rng, [e] + [140] * 6 + [7])
     packed, dims = pack_params(params, CPU)
-    floats_at_32 = ((e + 2 * 140 + 7) * (4 * 32 + 4)
-                    + 140 * 140 + 140)
-    assert 4 * floats_at_32 > 232448     # so 32 points cannot be the tile
+    floats_at_48 = 2 * 140 * (4 * 48 + 4) + 140 * 140 + 140
+    assert 4 * floats_at_48 > 232448     # so 56 or 48 points cannot be it
     h0 = torch.as_tensor(rng.uniform(-1, 1, (n, e)), dtype=torch.float32)
     d = torch.as_tensor(rng.standard_normal((a, n, e)), dtype=torch.float32)
     out = torch.empty(1 + a, n, 7)
@@ -429,3 +430,111 @@ def test_emulated_forward_kernel_fits_a_wide_net(lib):
     assert lib.fused_mlp_jet_launch(     # too wide even at 8 points
         h0.data_ptr(), d.data_ptr(), None, n, a, 1, packed.data_ptr(),
         _int_array(dims), len(wider), out.data_ptr(), None) != 0
+
+
+def _mlp_fwd(lib, params, h0, d, dtt):
+    """B1 through the emulated library: the (S, n, C) stream stack."""
+    packed, dims = pack_params(params, CPU)
+    n = h0.shape[0]
+    a = d.shape[0]
+    order = 2 if dtt is not None else 1
+    out = torch.full((1 + a + order - 1, n, dims[-1]), float("nan"))
+    assert lib.fused_mlp_jet_launch(
+        h0.data_ptr(), d.data_ptr(), None if dtt is None else dtt.data_ptr(),
+        n, a, order, packed.data_ptr(), _int_array(dims), len(params),
+        out.data_ptr(), None) == 0
+    return out
+
+
+def _composite_fwd(lib, params, x, order, lb, ub):
+    """B4 through the emulated library: the (S, n, C) stream stack."""
+    n, a = x.shape
+    args = []
+    nets = [pack_params(params[k], CPU) for k in tvjp.NETS]
+    for packed, dims in nets:
+        args += [packed.data_ptr(), _int_array(dims), len(dims) - 1]
+    out = torch.full((1 + a + order - 1, n, nets[0][1][-1]), float("nan"))
+    assert lib.fused_composite_jet_launch(
+        x.data_ptr(), n, a, order, _float_array(lb), _float_array(ub),
+        *args, out.data_ptr(), None) == 0
+    return out
+
+
+# B1: (seed, a, order, widths, n).  "seeded" takes a random seed of the
+# first layer's width (the Fourier embedding's 128), "raw" the seed of
+# normalised coordinates.  The 70-wide stacks take items of several
+# features, the narrow widths and the heads one-feature items; nets of 1, 2
+# and 4 layers take both row buffers in each role.  Ragged n of several
+# tiles.
+FORWARD_MLP_CASES = {
+    "b1_seeded_fourier_order1": ("seeded", 3, 1, [128] + [70] * 8 + [5], 121),
+    "b1_seeded_fourier_order2": ("seeded", 3, 2, [128] + [70] * 8 + [5], 121),
+    "b1_raw_plate_order1": ("raw", 3, 1, [3] + [70] * 8 + [5], 130),
+    "b1_raw_plate_order2": ("raw", 3, 2, [3] + [70] * 8 + [5], 130),
+    "b1_raw_3d_order2": ("raw", 4, 2, [4] + [100] * 6 + [3], 41),
+    "b1_one_layer": ("raw", 3, 1, [3, 5], 70),
+    "b1_two_layers": ("seeded", 4, 1, [12, 7, 5], 140),
+    "b1_four_layers": ("seeded", 4, 2, [9, 11, 6, 8, 4], 66),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORWARD_MLP_CASES))
+def test_emulated_forward_mlp_wide_tile_matches_plain(lib, case):
+    """B1 on the wide-tile layer against its float64 plain version, and two
+    runs bitwise equal."""
+    kind, a, order, dims, n = FORWARD_MLP_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    params = _mlp(rng, dims)
+    e = dims[0]
+    if kind == "raw":
+        x = _points(rng, n, a)
+        lb, ub = (0.0,) * a, (0.5,) * (a - 1) + (10.0,)
+        h0, d, dtt = (None if t is None else t.contiguous()
+                      for t in seed_jet(x, order=order, lb=lb, ub=ub))
+        want = tfj.fused_jet_reference(_f64(params), x.double(), order=order,
+                                       lb=lb, ub=ub)
+    else:
+        h0 = torch.as_tensor(rng.uniform(-1, 1, (n, e)), dtype=torch.float32)
+        d = torch.as_tensor(rng.standard_normal((a, n, e)),
+                            dtype=torch.float32)
+        dtt = (torch.as_tensor(rng.standard_normal((n, e)),
+                               dtype=torch.float32) if order == 2 else None)
+        want = tfj.fused_seed_jet_reference(
+            _f64(params), h0.double(), d.double(),
+            None if dtt is None else dtt.double())
+    out = _mlp_fwd(lib, params, h0, d, dtt)
+    _close(out, tfj.stack_jet(want))
+    assert torch.equal(out, _mlp_fwd(lib, params, h0, d, dtt))
+
+
+# B4: (a, order, uv widths, dist/part widths, normalised, n): the net-BC
+# plate nets (70-wide uv, 20-wide dist and part, which take one-feature
+# items), raw and normalised, orders 1 and 2; a 140-wide uv net, which takes
+# a smaller tile with one weight buffer; 3D nets.  Ragged n of several tiles.
+FORWARD_COMPOSITE_CASES = {
+    "b4_plate_raw_order1": (3, 1, [3] + [70] * 8 + [5], [3] + [20] * 4 + [5],
+                            False, 150),
+    "b4_plate_lb_ub_order2": (3, 2, [3] + [70] * 8 + [5],
+                              [3] + [20] * 4 + [5], True, 150),
+    "b4_uv_140_wide": (3, 2, [3] + [140] * 3 + [5], [3] + [20] * 4 + [5],
+                       True, 37),
+    "b4_3d_order2": (4, 2, [4] + [70] * 4 + [3], [4, 20, 3], True, 95),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORWARD_COMPOSITE_CASES))
+def test_emulated_forward_composite_wide_tile_matches_plain(lib, case):
+    """B4 on the wide-tile layer against its float64 plain version, and two
+    runs bitwise equal."""
+    a, order, uv, small, norm, n = FORWARD_COMPOSITE_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    params = {"uv": _mlp(rng, uv), "dist": _mlp(rng, small),
+              "part": _mlp(rng, small)}
+    x = _points(rng, n, a)
+    lb, ub = (((0.0,) * a, (0.5,) * (a - 1) + (10.0,)) if norm
+              else (None, None))
+    out = _composite_fwd(lib, params, x, order, lb, ub)
+    want = tfj.fused_composite_jet_reference(_f64(params), x.double(),
+                                             order=order, lb=lb, ub=ub)
+    _close(out, tfj.stack_jet(want))
+    assert torch.equal(out, _composite_fwd(lib, params, x, order, lb, ub))
