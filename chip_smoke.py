@@ -37,6 +37,19 @@ use only), then, in order:
 8. times each backward kernel at N = 103,711, order 2, beside its bound and
    its plain version, value+grad per configuration on the kernel path and
    the eager f32 path, and profiles one value+grad per configuration;
+9. runs 10 L-BFGS iterations (``train/lbfgs.py::minimize``) of each
+   configuration's main phase at ``scale=1.0`` through a counting loss:
+   exactly one forward and one backward kernel launch per loss evaluation,
+   the final loss below the first; prints iterations/s, line-search
+   evaluations per iteration and the optimizer's host time per iteration
+   (wall time less the run's value+grads, each timed to its end on the
+   device), and times the two-loop product at a full memory of 50 pairs;
+10. runs the net-BC ``run_pipeline`` (dist -> part -> uv, 4/4/6 iterations,
+   segments of 2) with a checkpoint every segment in a temporary
+   directory, cuts a second run after the uv phase's second segment and
+   resumes it with ``resume=True``: each phase's loss falls, the resumed uv
+   loss equals the uncut one within 1e-6 relative (bitwise or not is
+   printed), and the uv phase launched only B4 and B5;
 
 and prints one JSON line describing the kernels, then, only if every phase
 passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -68,6 +81,9 @@ FOURIER = 64
 FOURIER_SCALE = 2.0
 TOL_GRAD = 2e-4   # max|err| / max(1, max|ref|): tests/test_fused_vjp.py
 TOL_LOSS = 1e-5   # relative, kernel path f32 against eager f64
+TOL_RESUME = 1e-6  # relative, resumed against uncut final loss
+LBFGS_ITERS = 10
+PIPELINE_BUDGET = {"dist": 4, "part": 4, "uv": 6}
 ADAM_STEPS = 20
 ADAM_LR = 1e-3
 N_TRAIN = 103_711  # collocation points of plate_hole.build(scale=1.0)
@@ -506,6 +522,163 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
     return kernels
 
 
+def host_ms(torch, fn, runs=5):
+    """Median host-clock milliseconds of ``fn`` ending in a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - start))
+    return float(np.median(times))
+
+
+def lbfgs_checks(torch, trained):
+    """Phase 9: L-BFGS on each configuration's main phase.  Returns the
+    kernel launches of the three runs."""
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.train import lbfgs
+
+    plain_vg = lbfgs.value_and_grad
+    eval_ms = []
+
+    def timed_vg(*args, **kwargs):
+        """The optimizer's value+grad, timed to its end on the device."""
+        start = time.perf_counter()
+        out = plain_vg(*args, **kwargs)
+        torch.cuda.synchronize()
+        eval_ms.append(1e3 * (time.perf_counter() - start))
+        return out
+
+    total = None
+    for name, t in trained.items():
+        fn, sub, phase = t["fn"], t["sub"], t["phase"]
+        fwd, bwd = TRAIN_CONFIGS[name][3:]
+        losses = []
+
+        def counted(p):
+            loss = fn(p)
+            losses.append(loss.detach())
+            return loss
+
+        fj.reset_launches()
+        fv.reset_launches()
+        eval_ms.clear()
+        torch.cuda.synchronize()
+        lbfgs.value_and_grad = timed_vg
+        try:
+            start = time.perf_counter()
+            res = lbfgs.minimize(counted, sub, maxiter=LBFGS_ITERS,
+                                 ftol=phase.ftol, segment=LBFGS_ITERS)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - start)
+        finally:
+            lbfgs.value_and_grad = plain_vg
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        evals = len(losses)
+        want = dict.fromkeys(launches, 0)
+        want[fwd] = want[bwd] = evals
+        first, final = float(losses[0]), float(res.final_loss)
+        n = res.n_iters
+        log(f"  {name}: {n} iterations, {evals} evaluations, loss "
+            f"{first:.6g} -> {final:.6g}; {1e3 * n / wall_ms:.3f} it/s, "
+            f"{(evals - 1) / n:.2f} line-search evaluations per iteration, "
+            f"value+grad {np.median(eval_ms):.3f} ms [{min(eval_ms):.3f}, "
+            f"{max(eval_ms):.3f}] (host clock, median and range of "
+            f"{len(eval_ms)}), optimizer host time "
+            f"{(wall_ms - sum(eval_ms)) / n:.3f} ms per iteration; "
+            f"launches {launches}")
+        if n != LBFGS_ITERS or len(eval_ms) != evals or launches != want:
+            raise AssertionError(f"{name}: {n} iterations, launches "
+                                 f"{launches} != {want}")
+        if not (np.isfinite(final) and final < first):
+            raise AssertionError(f"{name}: L-BFGS loss {first} -> {final}")
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+
+    # The two-loop product at a full memory (50 pairs) at net-BC's uv size.
+    net = trained["net_bc"]
+    layout = lbfgs._Flat(net["sub"])
+    x = layout.flatten(net["sub"])
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    state = lbfgs._lbfgs_init(x, 50)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=x.device)
+    state.update(count=60, params=x + 1e-3 * rand(x.numel()),
+                 updates=rand(x.numel()),
+                 diff_params_memory=rand(50, x.numel()),
+                 diff_updates_memory=rand(50, x.numel()),
+                 weights_memory=rand(50).abs() + 1.0)
+    g = rand(x.numel())
+    ms = host_ms(torch, lambda: lbfgs._lbfgs_direction(g, state, x), runs=10)
+    log(f"  two-loop product, memory 50 x {x.numel()}: {ms:.3f} ms "
+        f"(host clock, median of 10)")
+    return total
+
+
+def pipeline_checks(torch, dev, params):
+    """Phase 10: net-BC run_pipeline, cut after the uv phase's second
+    segment and resumed.  Returns the kernel launches of the uncut run."""
+    import os
+    import tempfile
+
+    from pinn_elastodynamics_torch.cases import plate_hole
+    from pinn_elastodynamics_torch.cases.base import run_pipeline
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.train.checkpoint import load_checkpoint
+
+    case = plate_hole.build(scale=1.0, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        fj.reset_launches()
+        fv.reset_launches()
+        start = time.perf_counter()
+        _, uncut = run_pipeline(case, params, maxiter_override=PIPELINE_BUDGET,
+                                segment=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        for name, res in uncut.items():
+            hist = res.loss_history
+            log(f"  {name}: {res.n_iters} iterations, loss {hist[0]:.6g} -> "
+                f"{hist[-1]:.6g}")
+            if not (res.n_iters == PIPELINE_BUDGET[name]
+                    and np.all(np.isfinite(hist)) and hist[-1] < hist[0]):
+                raise AssertionError(f"{name}: history {hist}")
+        log(f"  uncut pipeline {wall:.2f} s, launches {launches}")
+        # dist and part run eager jets; uv one B4 and one B5 per evaluation.
+        uv_evals = launches["fused_composite_jet"]
+        want = dict.fromkeys(launches, 0)
+        want.update(fused_composite_jet=uv_evals,
+                    fused_composite_jet_bwd=uv_evals)
+        if launches != want or uv_evals < PIPELINE_BUDGET["uv"]:
+            raise AssertionError(f"pipeline launches {launches}")
+
+        live = os.path.join(tmp, "live.ckpt")
+        cut_budget = dict(PIPELINE_BUDGET, uv=4)
+        run_pipeline(case, params, maxiter_override=cut_budget, segment=2,
+                     checkpoint_path=live, checkpoint_every_segments=1)
+        saved = load_checkpoint(live)
+        if saved["phase"] != "uv" or saved["iters"] != 4:
+            raise AssertionError(f"checkpoint at {saved['phase']}, "
+                                 f"{saved['iters']} iterations")
+        _, resumed = run_pipeline(case, None, maxiter_override=PIPELINE_BUDGET,
+                                  segment=2, checkpoint_path=live,
+                                  checkpoint_every_segments=1, resume=True)
+    if sorted(resumed) != ["uv"] or resumed["uv"].n_iters != 2:
+        raise AssertionError(f"resumed phases {sorted(resumed)}")
+    got, want_loss = (float(resumed["uv"].final_loss),
+                      float(uncut["uv"].final_loss))
+    rel = abs(got - want_loss) / abs(want_loss)
+    log(f"  resumed uv loss {got:.9g}, uncut {want_loss:.9g} (rel {rel:.2e}, "
+        f"bitwise equal: {got == want_loss})")
+    if not rel <= TOL_RESUME:
+        raise AssertionError(f"resumed loss differs by {rel:.2e}")
+    return launches
+
+
 def eager_copy(model):
     """The same model with every jet on the plain (eager) path."""
     if hasattr(model, "uv_model"):  # closed-form composite
@@ -797,6 +970,18 @@ def main() -> int:
     kernels += backward_timings(torch, dev, rng, (net_p, ana_p, raw_p),
                                 fourier, trained, bwd_err, train_launches)
     log(f"phase training timings: {time.perf_counter() - t0:.2f} s")
+
+    # 9. L-BFGS on each configuration's main phase.
+    t0 = time.perf_counter()
+    lbfgs_launches = lbfgs_checks(torch, trained)
+    log(f"phase lbfgs: {time.perf_counter() - t0:.2f} s")
+
+    # 10. The net-BC pipeline with checkpoint and resume.
+    t0 = time.perf_counter()
+    pipe_launches = pipeline_checks(torch, dev, net_p)
+    log(f"phase pipeline: {time.perf_counter() - t0:.2f} s")
+    for k in kernels:
+        k["launches"] += lbfgs_launches[k["name"]] + pipe_launches[k["name"]]
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,8 +5,10 @@ reference's PlateHoleQuarter/train/train.py:871-974): plane stress,
 second-order (5-output) formulation, hard BCs via the composite u = P + D·ũ
 with dist/part pretraining phases, cyclic traction s11(t) = 0.5·sin(2πt/5 +
 3π/2) + 0.5 on the right edge, traction-free hole.  Geometry [0, 0.5]² minus
-an r=0.1 quarter-hole at the origin, T = 10; E=20, μ=0.25, ρ=1.  The FEM
-comparison data of the JAX case is not part of the port yet.
+an r=0.1 quarter-hole at the origin, T = 10; E=20, μ=0.25, ρ=1.  The case
+names its FEM comparison frames (81 frames under ``FEM_DIR``, a directory of
+the reference project that this repo does not hold) and its evaluation
+grid; nothing in the port reads the FEM frames yet.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ HOLE_R = 0.1
 LB = (0.0, 0.0, 0.0)
 UB = (0.5, 0.5, 10.0)
 MAX_T = 10.0
+# FEM frames, relative to the root of the reference project.
+FEM_DIR = "PlateHoleQuarter/FEM_result/Quarter_plate_hole_dynamic"
 
 
 def analytic_dist(p):
@@ -279,5 +283,8 @@ def build(
         phases=phases,
         lb=LB,
         ub=UB,
+        n_frames=81,
+        fem_dir=FEM_DIR,
+        eval_grid=eval_grid(),
         device=device,
     )

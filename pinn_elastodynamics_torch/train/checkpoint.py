@@ -5,9 +5,11 @@ Counterpart of ``pinn_elastodynamics_tpu/train/checkpoint.py``:
 * **native** checkpoints are one pickle of a numpy tree (parameters under
   ``"params"``, plus optimizer state and counters);
   :func:`save_checkpoint` writes one atomically, :func:`load_checkpoint`
-  returns that tree as numpy;
+  returns that tree as numpy and :func:`tensors_from_checkpoint` puts it
+  back on a device (an L-BFGS carry or Adam state included);
 * **reference** pickles hold ``[weights_list, biases_list]`` with biases
-  shaped (1, out); :func:`load_reference_pickle` returns MLP parameters.
+  shaped (1, out); :func:`load_reference_pickle` returns MLP parameters and
+  :func:`save_reference_pickle` writes them.
 
 :func:`params_from_jax` turns a JAX parameter tree held as numpy arrays
 (nested dicts and lists of ``{"W", "b"}``, ``{"B", "mlp"}`` for Fourier
@@ -76,6 +78,31 @@ def load_checkpoint(path: str, dtype=None):
     return conv(host)
 
 
+def tensors_from_checkpoint(tree, *, device="cuda", dtype=None):
+    """A loaded numpy tree (parameters, optimizer state or carry) → tensors
+    on ``device``.
+
+    Float arrays become ``dtype`` when given; integer and bool arrays keep
+    theirs, as :func:`load_checkpoint` keeps them.  Other leaves (phase
+    names, Python counters) are returned as they are.
+    """
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        if isinstance(x, np.ndarray):
+            t = torch.tensor(x, device=dev)
+            if x.dtype.kind == "f" and dtype is not None:
+                t = t.to(dtype)
+            return t
+        return x
+
+    return conv(tree)
+
+
 def params_from_jax(tree, *, device="cuda", dtype=torch.float32):
     """Numpy parameter tree (JAX layout) → the same tree of tensors."""
     dev = resolve_device(device)
@@ -111,6 +138,14 @@ def load_reference_pickle(path: str, *, device="cuda",
             raise ValueError(f"layer shape mismatch: W {w.shape} vs b {b.shape}")
         layers.append({"W": w, "b": b})
     return params_from_jax(layers, device=device, dtype=dtype)
+
+
+def save_reference_pickle(path: str, params: Params) -> None:
+    """Write MLP parameters in the reference's pickle layout (b as (1, out))."""
+    weights = [layer["W"].detach().cpu().numpy() for layer in params]
+    biases = [layer["b"].detach().cpu().numpy()[None, :] for layer in params]
+    with open(path, "wb") as f:
+        pickle.dump([weights, biases], f)
 
 
 def assert_layers_match(params: Params, layers) -> None:
