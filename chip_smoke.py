@@ -13,28 +13,34 @@ use only), then, in order:
    the card (B1 seeded at the Fourier64 plate widths, B1 raw-coordinate with
    lb/ub, B4 at the net-BC plate widths; order 1 and 2; N = 65,536 and
    1,000), and B1 at the wave-confined Fourier widths (128 -> 140 x 6 -> 7,
-   order 1, N = 1,000), which take a smaller tile than the plate nets;
+   order 1, N = 1,000), which take a smaller tile than the plate nets, and
+   at each wave configuration's widths (order 1, N = 1,000 and its
+   collocation N);
 4. serves both quarter-plate models at full width (random weights from a
    numpy seed, through ``params_from_jax``) behind ``FieldServer`` and checks
    every answer against a direct evaluation, the direct evaluation against
    the plain float64 forward, and the launch counts of the kernels;
 5. times each forward kernel and its plain version with CUDA events beside
    its bound, at N = 65,536, order 1 (serving) and N = 103,711, order 2
-   (the shape training launches), and ``predict_fields`` of both models;
+   (the shape training launches), B1 at the wave configurations'
+   collocation shapes (order 1), and ``predict_fields`` of both models;
 6. holds each backward kernel (B2 raw and with lb/ub, B3b seeded at the
    Fourier64 widths, B5 at the net-BC widths raw and with lb/ub) to its
    plain float64 version on the card, with random cotangents, at N =
    65,536, 1,000 and the
-   collocation bank's 103,711 (a partial last tile), order 1 and 2, and B2
-   and B3b at the wave-confined Fourier widths (order 1, N = 1,000), and
-   requires two runs to give bitwise-equal results;
+   collocation bank's 103,711 (a partial last tile), order 1 and 2, B2
+   and B3b at the wave-confined Fourier widths (order 1, N = 1,000), B2 at
+   the 140-, 80- (lb/ub) and 100-wide wave nets and B3b at the
+   wave-confined Fourier net (order 1, the collocation N and N = 1,000),
+   and requires two runs to give bitwise-equal results;
 7. trains the three plate configurations at ``scale=1.0`` (net-BC,
    analytic-BC + Fourier64 with ``trainable="uv.mlp"``, analytic-BC with a
    plain uv MLP): value+grad of the main phase loss on the kernel path
    against the eager float64 path on the card, exactly one forward and one
    backward kernel launch per value+grad, the dist and part losses once,
    and 20 Adam steps whose loss must fall;
-8. times each backward kernel at N = 103,711, order 2, beside its bound and
+8. times each backward kernel at N = 103,711, order 2, and B2/B3b at the
+   wave configurations' collocation shapes (order 1), beside its bound and
    its plain version, value+grad per configuration on the kernel path and
    the eager f32 path, and profiles one value+grad per configuration;
 9. runs 10 L-BFGS iterations (``train/lbfgs.py::minimize``) of each
@@ -50,6 +56,22 @@ use only), then, in order:
    resumes it with ``resume=True``: each phase's loss falls, the resumed uv
    loss equals the uncut one within 1e-6 relative (bitwise or not is
    printed), and the uv phase launched only B4 and B5;
+11. builds the wave configurations at ``scale=1.0`` and full width with
+   random weights (W1 confined soft 3 -> 140 x 6 -> 7, W2 confined hard-BC +
+   Fourier64 with ``B`` trained, W3 infinite 3 -> 80 x 8 -> 7 normalised, W4
+   semi-infinite soft 3 -> 100 x 8 -> 7, W5 semi-infinite hard-BC +
+   Fourier64, whose model runs the eager jet as in JAX): for W1-W4 the
+   value+grad of the main phase on the kernel path against the eager
+   float64 path, exactly one forward and one backward launch, value+grad
+   timings with a profile, and 10 L-BFGS iterations as in phase 9; for W5
+   one value+grad with no kernel launch;
+12. runs ``run_time_curriculum`` on wave_infinite at full width (scale 0.1,
+   stages of 10 s and 20 s, 4 iterations each) in a temporary directory:
+   each stage's loss falls, one B1 and one B2 launch per evaluation, and a
+   second call with ``resume=True`` skips both stages and returns the same
+   parameters bitwise; then ``python -m pinn_elastodynamics_torch.run``
+   trains wave_confined at scale 0.05 in a subprocess, which must exit 0
+   and write its metrics, checkpoint and reference pickle;
 
 and prints one JSON line describing the kernels, then, only if every phase
 passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -90,6 +112,43 @@ N_TRAIN = 103_711  # collocation points of plate_hole.build(scale=1.0)
 # The wave-confined hard-BC + Fourier64 net (cases/wave_confined.py), whose
 # buffers do not fit in shared memory at the plate nets' forward tiles.
 WAVE_DIMS = [2 * 64] + [140] * 6 + [7]
+# The kernel shapes of the wave configurations at scale 1.0 (order 1, four
+# streams): key -> (widths, collocation N, the domain box the points fill,
+# lb/ub of the input normalisation or None, seed of a Fourier64 embedding
+# normalised to the confined box).
+CONFINED_BOX = ((-15.0, -15.0, 0.0), (15.0, 15.0, 14.0))
+WAVE_SHAPES = {
+    "W1": ([3] + [140] * 6 + [7], 146_149, CONFINED_BOX, None, False),
+    "W2": (WAVE_DIMS, 146_149, CONFINED_BOX, None, True),
+    "W3": ([3] + [80] * 8 + [7], 124_830, ((0.0, 0.0, 0.0), (30.0, 30.0, 20.0)),
+           ((0.0, 0.0, 0.0), (30.0, 30.0, 20.0)), False),
+    "W4": ([3] + [100] * 8 + [7], 150_470,
+           ((-15.0, -15.0, 0.0), (15.0, 15.0, 16.0)), None, False),
+}
+WAVE_FOURIER_SCALE = 1.0
+# Phase 11: name -> (case module, build kwargs, kernel shape, forward and
+# backward kernel of one value+grad; None: the eager jet, as in JAX).
+WAVE_CONFIGS = {
+    "W1_confined_soft": ("wave_confined", {}, "W1", "fused_mlp_jet",
+                         "fused_mlp_jet_bwd"),
+    "W2_confined_hard_fourier64": (
+        "wave_confined",
+        dict(bc="hard", fourier=FOURIER, fourier_scale=WAVE_FOURIER_SCALE),
+        "W2", "fused_mlp_jet", "fused_seed_jet_bwd"),
+    "W3_infinite": ("wave_infinite", {}, "W3", "fused_mlp_jet",
+                    "fused_mlp_jet_bwd"),
+    "W4_semi_infinite_soft": ("wave_semi_infinite", {}, "W4", "fused_mlp_jet",
+                              "fused_mlp_jet_bwd"),
+    "W5_semi_infinite_hard_fourier64": (
+        "wave_semi_infinite",
+        dict(bc="hard", fourier=FOURIER, fourier_scale=WAVE_FOURIER_SCALE),
+        None, None, None),
+}
+# Phase 12: the curriculum on wave_infinite and the CLI on wave_confined.
+CURRICULUM_SCALE = 0.1
+CURRICULUM_STAGES = ((10.0, 4), (20.0, 4))   # (max_t, L-BFGS iterations)
+CLI_ARGS = ("--case", "wave_confined", "--scale", "0.05", "--maxiter", "uv=4",
+            "--segment", "2", "--log-every", "0")
 
 
 def log(msg: str) -> None:
@@ -134,6 +193,38 @@ def spacetime(rng, n, torch, device):
     xy = plate_points(rng, n)
     t = rng.uniform(0.0, 10.0, (n, 1)).astype(np.float32)
     return torch.as_tensor(np.concatenate([xy, t], 1), device=device)
+
+
+def box_points(rng, n, box, torch, device):
+    """(n, 3) f32 points drawn uniformly in the box (lo, hi)."""
+    lo, hi = (np.asarray(b, np.float64) for b in box)
+    pts = lo + (hi - lo) * rng.uniform(size=(n, 3))
+    return torch.as_tensor(pts.astype(np.float32), device=device)
+
+
+def wave_kernel_inputs(torch, dev, rng, key, n=None):
+    """Parameters (tensors), points and the order-1 seed (h0, d) of one wave
+    kernel shape (``WAVE_SHAPES``) at n points (its collocation N by
+    default)."""
+    from pinn_elastodynamics_torch.models.fields import FieldSpec
+    from pinn_elastodynamics_torch.models.fourier import FourierMLPFieldModel
+    from pinn_elastodynamics_torch.models.mlp import seed_jet
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+
+    dims, n_full, box, norm, seeded = WAVE_SHAPES[key]
+    x = box_points(rng, n or n_full, box, torch, dev)
+    params = params_from_jax(mlp_tree(rng, dims), device=dev)
+    if seeded:
+        embed = FourierMLPFieldModel(
+            spec=FieldSpec(), hidden=tuple(dims[1:-1]), n_features=FOURIER,
+            normalize=True, lb=CONFINED_BOX[0], ub=CONFINED_BOX[1])
+        b = WAVE_FOURIER_SCALE * rng.standard_normal((3, FOURIER))
+        h0, d, _ = embed._embed_jet(
+            {"B": torch.as_tensor(b, dtype=torch.float32, device=dev)}, x, 1)
+    else:
+        lb, ub = norm if norm else (None, None)
+        h0, d, _ = seed_jet(x, order=1, lb=lb, ub=ub)
+    return params, x, h0.contiguous(), d.contiguous()
 
 
 def to64(tree):
@@ -192,6 +283,27 @@ def cuda_times(torch, fn, warmup=3, runs=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def time_kernel(torch, name, kern, plain, flops, nbytes, label, runs=20):
+    """CUDA-event medians of a kernel's wrapper and of its plain f32
+    version, beside the bound of the work: the larger of its operations
+    over the f32 peak and its bytes over the memory rate."""
+    ms = time_cuda(torch, kern, runs=runs)
+    plain_ms = time_cuda(torch, plain, runs=runs)
+    op_ms = flops / F32_PEAK_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {name} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+
+
+def n_params(tree):
+    from pinn_elastodynamics_torch.utils.tree import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(tree))
 
 
 def device_breakdown(torch, fn, top=4):
@@ -336,6 +448,25 @@ def backward_checks(torch, dev, rng, trees, fourier, wave):
     run("fused_seed_jet_bwd", f"B3b wave-confined widths n={N_RAGGED} order=1",
         lambda: fv.fused_mlp_jet_bwd(wave, h0, d, None, cot, full_dx=True),
         lambda: ref)
+
+    # The wave configurations' shapes: N = 1,000 and the collocation N (a
+    # partial last tile); W2 at N = 1,000 is the net held just above.
+    for key in WAVE_SHAPES:
+        seeded = WAVE_SHAPES[key][4]
+        name = "fused_seed_jet_bwd" if seeded else "fused_mlp_jet_bwd"
+        for n in ((None,) if seeded else (N_RAGGED, None)):
+            params, x, h0, d = wave_kernel_inputs(torch, dev, wrng, key, n)
+            n_pts = x.shape[0]
+            cot = torch.as_tensor(wrng.standard_normal((4, n_pts, 7)),
+                                  dtype=torch.float32, device=dev)
+            ref = fv.mlp_jet_bwd_reference(to64(params), h0.double(),
+                                           d.double(), None, cot.double())
+            run(name, f"{'B3b' if seeded else 'B2'} {key} widths "
+                f"{WAVE_SHAPES[key][0][1]} n={n_pts} order=1",
+                lambda: fv.fused_mlp_jet_bwd(params, h0, d, None, cot,
+                                             full_dx=seeded),
+                lambda: ref if seeded else (ref[0], ref[1][0]))
+            del ref
     return max_err
 
 
@@ -351,11 +482,39 @@ TRAIN_CONFIGS = {
 }
 
 
+def eager_f64_case(case):
+    """The same case with float64 banks and every jet on the eager path."""
+    from pinn_elastodynamics_torch.banks import PointBank
+
+    banks64 = {k: PointBank(b.xyt.double(), b.mask.double(),
+                            {v: t.double() for v, t in b.values.items()})
+               for k, b in case.banks.items()}
+    return dataclasses.replace(case, model=eager_copy(case.model),
+                               banks=banks64)
+
+
+def check_against_f64(name, case, phase, params, loss, grads):
+    """A kernel-path value+grad of a phase loss against the eager float64
+    value+grad on the same device: the loss within TOL_LOSS relative, the
+    gradients within TOL_GRAD scaled."""
+    from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    fn64, sub64, _ = _phase_loss_fn(eager_f64_case(case), phase,
+                                    to64(params))
+    loss64, grads64 = value_and_grad(fn64, sub64)
+    rel = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    g_scaled, g_abs = check_grads(f"{name} value+grad", grads, grads64)
+    log(f"  {name}: loss {float(loss):.9g} (f64 {float(loss64):.9g}, "
+        f"rel {rel:.2e}), gradients {g_scaled:.3e} (max abs {g_abs:.3e})")
+    if not rel <= TOL_LOSS:
+        raise AssertionError(f"{name}: loss differs by {rel:.2e}")
+
+
 def training_checks(torch, dev, trees):
     """Phase 7: value+grad of each configuration's main phase on the kernel
     path against eager float64, launch counts, dist/part losses, Adam.
     Returns per configuration (case, phase loss, subtree, launches)."""
-    from pinn_elastodynamics_torch.banks import PointBank
     from pinn_elastodynamics_torch.cases import plate_hole
     from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
     from pinn_elastodynamics_torch.kernels import fused_jet as fj
@@ -387,20 +546,7 @@ def training_checks(torch, dev, trees):
         if launches != want:
             raise AssertionError(f"{name}: launches {launches} != {want}")
 
-        banks64 = {k: PointBank(b.xyt.double(), b.mask.double(),
-                                {v: t.double() for v, t in b.values.items()})
-                   for k, b in case.banks.items()}
-        case64 = dataclasses.replace(case, model=eager_copy(case.model),
-                                     banks=banks64)
-        fn64, sub64, _ = _phase_loss_fn(case64, phase, to64(params))
-        loss64, grads64 = value_and_grad(fn64, sub64)
-        rel = abs(float(loss) - float(loss64)) / abs(float(loss64))
-        g_scaled, g_abs = check_grads(f"{name} value+grad", grads, grads64)
-        log(f"  {name}: loss {float(loss):.9g} (f64 {float(loss64):.9g}, "
-            f"rel {rel:.2e}), gradients {g_scaled:.3e} (max abs {g_abs:.3e})")
-        if not rel <= TOL_LOSS:
-            raise AssertionError(f"{name}: loss differs by {rel:.2e}")
-        del case64, banks64, grads64
+        check_against_f64(name, case, phase, params, loss, grads)
 
         for pre in case.phases[:-1]:   # dist, part: eager jets, as in JAX
             pfn, psub, _ = _phase_loss_fn(case, pre, params)
@@ -430,13 +576,12 @@ def training_checks(torch, dev, trees):
 def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
                      launches):
     """Phase 8: each backward kernel and its plain f32 version by CUDA
-    events on the collocation bank (N = 103,711, order 2), beside its
-    bound; value+grad per configuration, kernel path and eager f32; one
-    profiled value+grad per configuration."""
-    from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
+    events on the collocation bank (N = 103,711, order 2) and B2/B3b at the
+    wave configurations' collocation shapes (order 1), beside their bounds;
+    value+grad per configuration, kernel path and eager f32; one profiled
+    value+grad per configuration."""
     from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
     from pinn_elastodynamics_torch.models.mlp import seed_jet
-    from pinn_elastodynamics_torch.train.step import value_and_grad
 
     net_p, ana_p, raw_p = trees
     x = trained["net_bc"]["case"].banks["collocation"].xyt
@@ -448,11 +593,6 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
     uv_dims = [3] + [70] * 8 + [5]
     small_dims = [3] + [20] * 4 + [5]
     four_dims = [2 * FOURIER] + [70] * 8 + [5]
-
-    def n_params(tree):
-        from pinn_elastodynamics_torch.utils.tree import tree_leaves
-
-        return sum(t.numel() for t in tree_leaves(tree))
 
     # Bytes: every input read once, every output written once (f32).
     timed = {
@@ -483,43 +623,67 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
     }
     kernels = []
     for name, (kern, plain, flops, nbytes, replaces) in timed.items():
-        ms = time_cuda(torch, kern, runs=10)
-        plain_ms = time_cuda(torch, plain, runs=10)
-        op_ms = flops / F32_PEAK_FLOPS * 1e3
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
+        times = time_kernel(torch, name, kern, plain, flops, nbytes,
+                            f"n={n} order=2", runs=10)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pinn_elastodynamics_torch/kernels/csrc/fused_jet_vjp.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": bwd_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(op_ms, byte_ms),
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-            "library_ms": None,
+            "max_abs_err": bwd_err[name], **times, "library_ms": None,
         })
 
+    # B2 and B3b at the wave configurations' collocation shapes (order 1).
+    wrng = np.random.default_rng(SEED + 6)
+    for key, (dims, n_w, _, _, seeded) in WAVE_SHAPES.items():
+        params, _, wh, wd = wave_kernel_inputs(torch, dev, wrng, key)
+        wcot = torch.as_tensor(wrng.standard_normal((4, n_w, dims[-1])),
+                               dtype=torch.float32, device=dev)
+        name = "fused_seed_jet_bwd" if seeded else "fused_mlp_jet_bwd"
+        seed_elems = wh.numel() + wd.numel()
+        nbytes = 4 * (seed_elems + wcot.numel() + 2 * n_params(params)
+                      + (seed_elems if seeded else wh.numel()))
+        times = time_kernel(
+            torch, name,
+            lambda: fv.fused_mlp_jet_bwd(params, wh, wd, None, wcot,
+                                         full_dx=seeded),
+            lambda: fv.mlp_jet_bwd_reference(params, wh, wd, None, wcot),
+            bwd_flops_per_point(dims, 4) * n_w, nbytes,
+            f"{key} n={n_w} order=1", runs=10)
+        entry = next(k for k in kernels if k["name"] == name)
+        entry.setdefault("wave_shapes", {})[key] = times
+
     for name, t in trained.items():
-        case, fn, sub = t["case"], t["fn"], t["sub"]
-        eager_case = dataclasses.replace(case, model=eager_copy(case.model))
-        efn, esub, _ = _phase_loss_fn(eager_case, t["phase"], t["params"])
-        # In turns, so that a slow spell of the host falls on both paths.
-        ker, eag = [], []
-        for _ in range(3):
-            ker += cuda_times(torch, lambda: value_and_grad(fn, sub), runs=5)
-            eag += cuda_times(torch, lambda: value_and_grad(efn, esub), runs=5)
-        log(f"  value+grad {name}: kernel path {np.median(ker):.3f} ms "
-            f"[{min(ker):.3f}, {max(ker):.3f}], eager f32 {np.median(eag):.3f} "
-            f"ms [{min(eag):.3f}, {max(eag):.3f}] (CUDA events, median and "
-            f"range of 15, in three turns)")
-        wall, busy, rows = device_breakdown(
-            torch, lambda: value_and_grad(fn, sub), top=6)
-        log(f"  profiled value+grad {name}: wall {wall:.4f} s, device busy "
-            f"{busy:.4f} s ({100 * busy / wall:.1f}%)")
-        for sec_k, count, key in rows:
-            log(f"    {sec_k:.5f} s  x{count}  {key[:90]}")
+        value_and_grad_timings(torch, name, t["case"], t["phase"],
+                               t["params"], t["fn"], t["sub"])
     return kernels
+
+
+def value_and_grad_timings(torch, name, case, phase, params, fn, sub):
+    """Value+grad of a phase loss by CUDA events, the kernel path and the
+    eager f32 path in three turns of 5 (median and range of 15), and one
+    profiled value+grad of the kernel path.  Returns the kernel path's
+    median ms."""
+    from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    eager_case = dataclasses.replace(case, model=eager_copy(case.model))
+    efn, esub, _ = _phase_loss_fn(eager_case, phase, params)
+    # In turns, so that a slow spell of the host falls on both paths.
+    ker, eag = [], []
+    for _ in range(3):
+        ker += cuda_times(torch, lambda: value_and_grad(fn, sub), runs=5)
+        eag += cuda_times(torch, lambda: value_and_grad(efn, esub), runs=5)
+    log(f"  value+grad {name}: kernel path {np.median(ker):.3f} ms "
+        f"[{min(ker):.3f}, {max(ker):.3f}], eager f32 {np.median(eag):.3f} "
+        f"ms [{min(eag):.3f}, {max(eag):.3f}] (CUDA events, median and "
+        f"range of 15, in three turns)")
+    wall, busy, rows = device_breakdown(
+        torch, lambda: value_and_grad(fn, sub), top=6)
+    log(f"  profiled value+grad {name}: wall {wall:.4f} s, device busy "
+        f"{busy:.4f} s ({100 * busy / wall:.1f}%)")
+    for sec_k, count, key in rows:
+        log(f"    {sec_k:.5f} s  x{count}  {key[:90]}")
+    return float(np.median(ker))
 
 
 def host_ms(torch, fn, runs=5):
@@ -535,15 +699,26 @@ def host_ms(torch, fn, runs=5):
     return float(np.median(times))
 
 
-def lbfgs_checks(torch, trained):
-    """Phase 9: L-BFGS on each configuration's main phase.  Returns the
-    kernel launches of the three runs."""
+def add_launches(total, launches):
+    """Launch counts summed key by key (``total`` may be None)."""
+    if total is None:
+        return dict(launches)
+    return {k: total[k] + launches[k] for k in total}
+
+
+def lbfgs_run(torch, name, fn, sub, ftol, fwd, bwd):
+    """LBFGS_ITERS L-BFGS iterations of the phase loss ``fn`` from ``sub``
+    through a counting loss: exactly one ``fwd`` and one ``bwd`` launch per
+    evaluation, the final loss below the first; prints iterations/s,
+    line-search evaluations per iteration and the optimizer's host time per
+    iteration (wall less the run's value+grads, each timed to its end).
+    Returns the launches."""
     from pinn_elastodynamics_torch.kernels import fused_jet as fj
     from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
     from pinn_elastodynamics_torch.train import lbfgs
 
     plain_vg = lbfgs.value_and_grad
-    eval_ms = []
+    eval_ms, losses = [], []
 
     def timed_vg(*args, **kwargs):
         """The optimizer's value+grad, timed to its end on the device."""
@@ -553,51 +728,55 @@ def lbfgs_checks(torch, trained):
         eval_ms.append(1e3 * (time.perf_counter() - start))
         return out
 
+    def counted(p):
+        loss = fn(p)
+        losses.append(loss.detach())
+        return loss
+
+    fj.reset_launches()
+    fv.reset_launches()
+    torch.cuda.synchronize()
+    lbfgs.value_and_grad = timed_vg
+    try:
+        start = time.perf_counter()
+        res = lbfgs.minimize(counted, sub, maxiter=LBFGS_ITERS, ftol=ftol,
+                             segment=LBFGS_ITERS)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - start)
+    finally:
+        lbfgs.value_and_grad = plain_vg
+    launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+    evals = len(losses)
+    want = dict.fromkeys(launches, 0)
+    want[fwd] = want[bwd] = evals
+    first, final = float(losses[0]), float(res.final_loss)
+    n = res.n_iters
+    log(f"  {name}: {n} iterations, {evals} evaluations, loss "
+        f"{first:.6g} -> {final:.6g}; {1e3 * n / wall_ms:.3f} it/s, "
+        f"{(evals - 1) / n:.2f} line-search evaluations per iteration, "
+        f"value+grad {np.median(eval_ms):.3f} ms [{min(eval_ms):.3f}, "
+        f"{max(eval_ms):.3f}] (host clock, median and range of "
+        f"{len(eval_ms)}), optimizer host time "
+        f"{(wall_ms - sum(eval_ms)) / n:.3f} ms per iteration; "
+        f"launches {launches}")
+    if n != LBFGS_ITERS or len(eval_ms) != evals or launches != want:
+        raise AssertionError(f"{name}: {n} iterations, launches "
+                             f"{launches} != {want}")
+    if not (np.isfinite(final) and final < first):
+        raise AssertionError(f"{name}: L-BFGS loss {first} -> {final}")
+    return launches
+
+
+def lbfgs_checks(torch, trained):
+    """Phase 9: L-BFGS on each configuration's main phase.  Returns the
+    kernel launches of the three runs."""
+    from pinn_elastodynamics_torch.train import lbfgs
+
     total = None
     for name, t in trained.items():
-        fn, sub, phase = t["fn"], t["sub"], t["phase"]
         fwd, bwd = TRAIN_CONFIGS[name][3:]
-        losses = []
-
-        def counted(p):
-            loss = fn(p)
-            losses.append(loss.detach())
-            return loss
-
-        fj.reset_launches()
-        fv.reset_launches()
-        eval_ms.clear()
-        torch.cuda.synchronize()
-        lbfgs.value_and_grad = timed_vg
-        try:
-            start = time.perf_counter()
-            res = lbfgs.minimize(counted, sub, maxiter=LBFGS_ITERS,
-                                 ftol=phase.ftol, segment=LBFGS_ITERS)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - start)
-        finally:
-            lbfgs.value_and_grad = plain_vg
-        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
-        evals = len(losses)
-        want = dict.fromkeys(launches, 0)
-        want[fwd] = want[bwd] = evals
-        first, final = float(losses[0]), float(res.final_loss)
-        n = res.n_iters
-        log(f"  {name}: {n} iterations, {evals} evaluations, loss "
-            f"{first:.6g} -> {final:.6g}; {1e3 * n / wall_ms:.3f} it/s, "
-            f"{(evals - 1) / n:.2f} line-search evaluations per iteration, "
-            f"value+grad {np.median(eval_ms):.3f} ms [{min(eval_ms):.3f}, "
-            f"{max(eval_ms):.3f}] (host clock, median and range of "
-            f"{len(eval_ms)}), optimizer host time "
-            f"{(wall_ms - sum(eval_ms)) / n:.3f} ms per iteration; "
-            f"launches {launches}")
-        if n != LBFGS_ITERS or len(eval_ms) != evals or launches != want:
-            raise AssertionError(f"{name}: {n} iterations, launches "
-                                 f"{launches} != {want}")
-        if not (np.isfinite(final) and final < first):
-            raise AssertionError(f"{name}: L-BFGS loss {first} -> {final}")
-        total = launches if total is None else {
-            k: total[k] + launches[k] for k in total}
+        total = add_launches(total, lbfgs_run(
+            torch, name, t["fn"], t["sub"], t["phase"].ftol, fwd, bwd))
 
     # The two-loop product at a full memory (50 pairs) at net-BC's uv size.
     net = trained["net_bc"]
@@ -676,6 +855,184 @@ def pipeline_checks(torch, dev, params):
         f"bitwise equal: {got == want_loss})")
     if not rel <= TOL_RESUME:
         raise AssertionError(f"resumed loss differs by {rel:.2e}")
+    return launches
+
+
+def wave_params(rng, model):
+    """Random parameters of a wave model in the JAX layout (numpy f32): an
+    MLP, a Fourier net {'B', 'mlp'}, either under 'uv' for a closed-form
+    hard-BC composite."""
+    net = getattr(model, "uv_model", model)
+    tree = mlp_tree(rng, list(net.layers))
+    if hasattr(net, "n_features"):
+        b = net.feature_scale * rng.standard_normal((3, net.n_features))
+        tree = {"B": b.astype(np.float32), "mlp": tree}
+    return {"uv": tree} if net is not model else tree
+
+
+def wave_checks(torch, dev):
+    """Phase 11: the wave configurations at scale 1.0 and full width with
+    random weights.  W1-W4: value+grad of the main phase (every parameter
+    trained) on the kernel path against eager float64, one forward and one
+    backward launch, value+grad timings with a profile, and 10 L-BFGS
+    iterations; W5 (eager Fourier model, as in JAX): one value+grad with no
+    launch.  Returns the kernel launches of the counted runs."""
+    import importlib
+
+    from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    rng = np.random.default_rng(SEED + 7)
+    total = None
+    for name, (mod_name, kw, key, fwd, bwd) in WAVE_CONFIGS.items():
+        t0 = time.perf_counter()
+        mod = importlib.import_module(
+            f"pinn_elastodynamics_torch.cases.{mod_name}")
+        case = mod.build(scale=1.0, device=dev, **kw)
+        n_col = case.banks["collocation"].n_total
+        if key is not None and n_col != WAVE_SHAPES[key][1]:
+            raise AssertionError(f"{name}: {n_col} collocation points")
+        params = params_from_jax(wave_params(rng, case.model), device=dev)
+        (phase,) = case.phases
+        fn, sub, _ = _phase_loss_fn(case, phase, params)
+        value_and_grad(fn, sub)   # warm-up
+        torch.cuda.synchronize()
+        fj.reset_launches()
+        fv.reset_launches()
+        loss, grads = value_and_grad(fn, sub)
+        torch.cuda.synchronize()
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        want = dict.fromkeys(launches, 0)
+        if fwd is not None:
+            want[fwd] = want[bwd] = 1
+        log(f"  {name}: N = {n_col}, loss {float(loss):.9g}, launches per "
+            f"value+grad {launches}")
+        if launches != want or not bool(torch.isfinite(loss)):
+            raise AssertionError(f"{name}: launches {launches} != {want}, "
+                                 f"loss {float(loss)}")
+        total = add_launches(total, launches)
+        if fwd is None:   # the eager Fourier model kept from JAX
+            log(f"  {name}: {time.perf_counter() - t0:.2f} s")
+            continue
+
+        torch.cuda.reset_peak_memory_stats()
+        check_against_f64(name, case, phase, params, loss, grads)
+        log(f"  {name}: float64 check at scale 1.0, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del grads
+        value_and_grad_timings(torch, name, case, phase, params, fn, sub)
+        total = add_launches(total, lbfgs_run(torch, name, fn, sub,
+                                              phase.ftol, fwd, bwd))
+        del case, params, fn, sub
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def curriculum_checks(torch, dev):
+    """Phase 12: ``run_time_curriculum`` on wave_infinite at full width
+    (scale CURRICULUM_SCALE, stages 10 s and 20 s) in a temporary directory:
+    each stage's loss falls, one B1 and one B2 launch per evaluation, and a
+    second call with ``resume=True`` skips both stages and returns the same
+    parameters bitwise; then the CLI trains wave_confined in a subprocess.
+    Returns the kernel launches of the first curriculum call."""
+    import os
+    import tempfile
+
+    from pinn_elastodynamics_torch.cases import wave_infinite
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.train import lbfgs
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+    from pinn_elastodynamics_torch.train.curriculum import (
+        Stage,
+        run_time_curriculum,
+    )
+
+    stages = [Stage(max_t=t, maxiter=it, warmup_iters=2, warmup_segment=2)
+              for t, it in CURRICULUM_STAGES]
+    params = params_from_jax(
+        wave_params(np.random.default_rng(SEED + 8),
+                    wave_infinite.build_model()), device=dev)
+    plain_vg = lbfgs.value_and_grad
+    losses, stage_ends = [], []
+
+    def recorded_vg(*args, **kwargs):
+        out = plain_vg(*args, **kwargs)
+        losses.append(float(out[0]))
+        return out
+
+    class StageEnds:
+        """A logger that notes how many evaluations each stage ended at."""
+
+        def log(self, record):
+            stage_ends.append(len(losses))
+
+    kw = dict(builder_kwargs=dict(scale=CURRICULUM_SCALE), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        fj.reset_launches()
+        fv.reset_launches()
+        lbfgs.value_and_grad = recorded_vg
+        try:
+            start = time.perf_counter()
+            first, summaries = run_time_curriculum(
+                wave_infinite.build, stages, params=params,
+                checkpoint_dir=tmp, logger=StageEnds(), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        finally:
+            lbfgs.value_and_grad = plain_vg
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        begin = 0
+        for summary, end in zip(summaries, stage_ends, strict=True):
+            seed_loss, final = losses[begin], summary["final_loss"]
+            log(f"  stage {summary['stage']} (T = {summary['max_t']:g}): "
+                f"{summary['iters']} iterations, {end - begin} evaluations, "
+                f"loss {seed_loss:.6g} -> {final:.6g}")
+            if not (summary["iters"] == stages[summary["stage"]].maxiter
+                    and np.isfinite(final) and final < seed_loss):
+                raise AssertionError(f"curriculum stage {summary}")
+            begin = end
+        want = dict.fromkeys(launches, 0)
+        want["fused_mlp_jet"] = want["fused_mlp_jet_bwd"] = len(losses)
+        log(f"  curriculum {wall:.2f} s, {len(losses)} evaluations, launches "
+            f"{launches}")
+        if launches != want:
+            raise AssertionError(f"curriculum launches {launches} != {want}")
+        again, resumed = run_time_curriculum(
+            wave_infinite.build, stages, checkpoint_dir=tmp, resume=True, **kw)
+        same = bitwise_equal(first, again)
+        log(f"  resumed curriculum: stages skipped "
+            f"{[bool(r.get('resumed')) for r in resumed]}, parameters "
+            f"bitwise equal: {same}")
+        if not (same and all(r.get("resumed") for r in resumed)):
+            raise AssertionError("the resumed curriculum differs")
+
+        out = os.path.join(tmp, "cli")
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pinn_elastodynamics_torch.run", *CLI_ARGS,
+             "--out", out],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            events = {e["event"]: e for e in map(json.loads, f)}
+        comps = events["train_done"]["components"]
+        log(f"  CLI {' '.join(CLI_ARGS)}: exit 0 in "
+            f"{time.perf_counter() - start:.2f} s, start {events['start']}, "
+            f"phase_end {events['phase_end']}, components {comps}")
+        written = [os.path.exists(os.path.join(out, f))
+                   for f in ("elastic_wave_confined_uv.ckpt",
+                             "elastic_wave_confined_uv.pickle")]
+        if not ("cuda" in events["start"]["devices"][0] and all(written)
+                and np.all(np.isfinite(list(comps.values())))):
+            raise AssertionError(f"CLI run: {events}, files {written}")
     return launches
 
 
@@ -788,6 +1145,26 @@ def main() -> int:
         err = check_jet(f"B1 wave-confined widths n={N_RAGGED} order=1", ker,
                         ref)
         max_err["fused_mlp_jet"] = max(max_err["fused_mlp_jet"], err)
+        # The wave configurations' shapes, order 1: N = 1,000 and the
+        # collocation N, through the entry the models call.
+        wrng = np.random.default_rng(SEED + 4)
+        for key, (dims, _, _, norm, seeded) in WAVE_SHAPES.items():
+            for n in (N_RAGGED, None):
+                params, x, h0, d = wave_kernel_inputs(torch, dev, wrng, key, n)
+                if seeded:
+                    ker = fv.fused_seed_jet_vjp(params, h0, d)
+                    ref = fj.fused_seed_jet_reference(
+                        to64(params), h0.double(), d.double())
+                else:
+                    lb, ub = norm if norm else (None, None)
+                    ker = fv.fused_jet_vjp(params, x, order=1, lb=lb, ub=ub)
+                    ref = fj.fused_jet_reference(to64(params), x.double(),
+                                                 order=1, lb=lb, ub=ub)
+                kind = ("seeded Fourier64" if seeded
+                        else "lb/ub" if norm else "raw")
+                err = check_jet(f"B1 {key} {kind} widths {dims[1]} "
+                                f"n={x.shape[0]} order=1", ker, ref)
+                max_err["fused_mlp_jet"] = max(max_err["fused_mlp_jet"], err)
     torch.cuda.synchronize()
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 
@@ -902,23 +1279,32 @@ def main() -> int:
                 + weight_bytes["fused_composite_jet"]),
         }
 
-    def time_forward(name, kern, plain, flops, nbytes, label):
-        ms = time_cuda(torch, kern)
-        plain_ms = time_cuda(torch, plain)
-        op_ms = flops / F32_PEAK_FLOPS * 1e3
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"  {name} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
-        return {"ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(op_ms, byte_ms),
-                "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
-
     with torch.no_grad():
-        serve = {name: time_forward(name, *args, f"n={N_BIG} order=1")
+        serve = {name: time_kernel(torch, name, *args, f"n={N_BIG} order=1")
                  for name, args in forward_timed(N_BIG, 1).items()}
-        train = {name: time_forward(name, *args, f"n={N_TRAIN} order=2")
+        train = {name: time_kernel(torch, name, *args, f"n={N_TRAIN} order=2")
                  for name, args in forward_timed(N_TRAIN, 2).items()}
+        # B1 at the wave configurations' collocation shapes (order 1).
+        wrng = np.random.default_rng(SEED + 5)
+        wave_fwd = {}
+        for key, (dims, n, _, norm, seeded) in WAVE_SHAPES.items():
+            params, x, h0, d = wave_kernel_inputs(torch, dev, wrng, key)
+            lb, ub = norm if norm else (None, None)
+            if seeded:
+                kern = lambda: fj.fused_seed_jet_stack(params, h0, d)
+                plain = lambda: fj.fused_seed_jet_reference(params, h0, d)
+                in_bytes = 4 * (h0.numel() + d.numel())
+            else:
+                kern = lambda: fj.fused_jet_stack(params, x, order=1, lb=lb,
+                                                  ub=ub)
+                plain = lambda: fj.fused_jet_reference(params, x, order=1,
+                                                       lb=lb, ub=ub)
+                in_bytes = 4 * x.numel()
+            wave_fwd[key] = time_kernel(
+                torch, "fused_mlp_jet", kern, plain,
+                flops_per_point(dims, 4) * n,
+                in_bytes + 4 * 4 * n * dims[-1] + 4 * n_params(params),
+                f"{key} n={n} order=1")
     kernels = [{
         "name": name, "route": "cuda",
         "source": "pinn_elastodynamics_torch/kernels/csrc/fused_jet.cu",
@@ -926,6 +1312,8 @@ def main() -> int:
         "max_abs_err": max_err[name], **serve[name],
         f"n{N_TRAIN}_order2": train[name], "library_ms": None,
     } for name in serve]
+    kernels[0]["wave_shapes"] = wave_fwd
+    assert kernels[0]["name"] == "fused_mlp_jet"
     xy = plate_points(rng, 4 * N_BIG)
     for name, ev in evaluators.items():
         model, params = ev.model, ev.params
@@ -980,8 +1368,20 @@ def main() -> int:
     t0 = time.perf_counter()
     pipe_launches = pipeline_checks(torch, dev, net_p)
     log(f"phase pipeline: {time.perf_counter() - t0:.2f} s")
+
+    # 11. The wave configurations at full width and scale 1.0.
+    t0 = time.perf_counter()
+    wave_launches = wave_checks(torch, dev)
+    log(f"phase waves: {time.perf_counter() - t0:.2f} s")
+
+    # 12. The time-horizon curriculum and the CLI.
+    t0 = time.perf_counter()
+    curriculum_launches = curriculum_checks(torch, dev)
+    log(f"phase curriculum and CLI: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
-        k["launches"] += lbfgs_launches[k["name"]] + pipe_launches[k["name"]]
+        k["launches"] += sum(counts[k["name"]] for counts in (
+            lbfgs_launches, pipe_launches, wave_launches,
+            curriculum_launches))
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
