@@ -72,6 +72,31 @@ use only), then, in order:
    parameters bitwise; then ``python -m pinn_elastodynamics_torch.run``
    trains wave_confined at scale 0.05 in a subprocess, which must exit 0
    and write its metrics, checkpoint and reference pickle;
+13. the microbatched million-point loss (BASELINE config #3):
+   wave_confined at scale 6.0 padded to 64 (876,736 collocation and
+   2,029,248 source points), soft, 3 -> 140 x 6 -> 7 with random weights,
+   8 microbatches: loss and gradients against the full-batch kernel path
+   and the microbatched eager float64 path, exactly 16 B1 and 8 B2 launches
+   per microbatched value+grad (each chunk's forward is recomputed by the
+   checkpoint in the backward) and 1 and 1 for the full batch, the peak
+   device memory of the three value+grads, value+grad timings in turns, a
+   profile, and 10 L-BFGS iterations;
+14. the extended-precision endgame on the plate's net-BC (``uv``) and
+   analytic + Fourier64 (``uv.mlp``) configurations at scale 1.0: the host
+   engine's value+grad (``make_host_phase_vg``) against eager float64 on
+   the card, one forward and one backward launch and one device-to-host
+   copy per evaluation, its time split into the device value+grad, the
+   copy and the host sums; 10 iterations of ``minimize_host``, a 5 + 5
+   resumed run that must end bitwise on the straight run, 5 whitened
+   iterations (``make_preconditioned_vg``), and ``mixed_precision_phase_fn``
+   (float64 loss and gradients against eager float64, then 10 iterations of
+   ``minimize`` on the float64 tree);
+15. the 3D case (BASELINE config #4) at scale 1.0: ``elastic3d.build``
+   (4 -> 100 x 6 -> 12 normalised, N = 225,074) and ``build_mms`` (4 -> 64
+   x 5 -> 12, N = 80,000), each as phase 11 runs a wave configuration,
+   ``mms_errors`` before and after the MMS iterations, then ``python -m
+   pinn_elastodynamics_torch.run --case elastic3d`` in a subprocess.
+   Phases 3, 5, 6 and 8 hold and time B1 and B2 at both 3D shapes too;
 
 and prints one JSON line describing the kernels, then, only if every phase
 passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -117,6 +142,10 @@ WAVE_DIMS = [2 * 64] + [140] * 6 + [7]
 # lb/ub of the input normalisation or None, seed of a Fourier64 embedding
 # normalised to the confined box).
 CONFINED_BOX = ((-15.0, -15.0, 0.0), (15.0, 15.0, 14.0))
+# E1 and E2 are the 3D nets (cases/elastic3d.py; twelve outputs, five
+# streams).
+CUBE_BOX = ((-15.0, -15.0, -15.0, 0.0), (15.0, 15.0, 15.0, 10.0))
+MMS_BOX = ((-1.0, -1.0, -1.0, 0.0), (1.0, 1.0, 1.0, 2.0))
 WAVE_SHAPES = {
     "W1": ([3] + [140] * 6 + [7], 146_149, CONFINED_BOX, None, False),
     "W2": (WAVE_DIMS, 146_149, CONFINED_BOX, None, True),
@@ -124,6 +153,8 @@ WAVE_SHAPES = {
            ((0.0, 0.0, 0.0), (30.0, 30.0, 20.0)), False),
     "W4": ([3] + [100] * 8 + [7], 150_470,
            ((-15.0, -15.0, 0.0), (15.0, 15.0, 16.0)), None, False),
+    "E1": ([4] + [100] * 6 + [12], 225_074, CUBE_BOX, CUBE_BOX, False),
+    "E2": ([4] + [64] * 5 + [12], 80_000, MMS_BOX, MMS_BOX, False),
 }
 WAVE_FOURIER_SCALE = 1.0
 # Phase 11: name -> (case module, build kwargs, kernel shape, forward and
@@ -149,6 +180,26 @@ CURRICULUM_SCALE = 0.1
 CURRICULUM_STAGES = ((10.0, 4), (20.0, 4))   # (max_t, L-BFGS iterations)
 CLI_ARGS = ("--case", "wave_confined", "--scale", "0.05", "--maxiter", "uv=4",
             "--segment", "2", "--log-every", "0")
+# Phase 13: wave_confined at the scale of BASELINE config #3.
+MILLION_SCALE = 6.0
+MILLION_PAD = 64
+MICROBATCHES = 8
+N_MILLION = 876_736        # collocation points, padded
+N_MILLION_SRC = 2_029_248  # source points, padded
+# Phase 14: name -> (build kwargs, trainable path, tree key, forward and
+# backward kernel).
+ENDGAME_CONFIGS = {
+    "net_bc": ({}, "uv", 0, "fused_composite_jet", "fused_composite_jet_bwd"),
+    "analytic_fourier64": (
+        dict(bc="analytic", fourier=FOURIER, fourier_scale=FOURIER_SCALE),
+        "uv.mlp", 1, "fused_mlp_jet", "fused_seed_jet_bwd"),
+}
+ENDGAME_ITERS = 10
+# Phase 15: name -> (builder of cases/elastic3d.py, kernel shape).
+ELASTIC3D_CONFIGS = {"E1_elastic3d": ("build", "E1"),
+                     "E2_elastic3d_mms": ("build_mms", "E2")}
+CLI_3D_ARGS = ("--case", "elastic3d", "--scale", "0.01", "--maxiter", "uv=4",
+               "--segment", "2", "--log-every", "0")
 
 
 def log(msg: str) -> None:
@@ -196,10 +247,16 @@ def spacetime(rng, n, torch, device):
 
 
 def box_points(rng, n, box, torch, device):
-    """(n, 3) f32 points drawn uniformly in the box (lo, hi)."""
+    """(n, A) f32 points drawn uniformly in the box (lo, hi)."""
     lo, hi = (np.asarray(b, np.float64) for b in box)
-    pts = lo + (hi - lo) * rng.uniform(size=(n, 3))
+    pts = lo + (hi - lo) * rng.uniform(size=(n, lo.size))
     return torch.as_tensor(pts.astype(np.float32), device=device)
+
+
+def shape_streams(key):
+    """Streams of a ``WAVE_SHAPES`` jet at order 1: the value and one
+    tangent per input coordinate."""
+    return 1 + len(WAVE_SHAPES[key][2][0])
 
 
 def wave_kernel_inputs(torch, dev, rng, key, n=None):
@@ -457,8 +514,10 @@ def backward_checks(torch, dev, rng, trees, fourier, wave):
         for n in ((None,) if seeded else (N_RAGGED, None)):
             params, x, h0, d = wave_kernel_inputs(torch, dev, wrng, key, n)
             n_pts = x.shape[0]
-            cot = torch.as_tensor(wrng.standard_normal((4, n_pts, 7)),
-                                  dtype=torch.float32, device=dev)
+            cot = torch.as_tensor(
+                wrng.standard_normal((shape_streams(key), n_pts,
+                                      WAVE_SHAPES[key][0][-1])),
+                dtype=torch.float32, device=dev)
             ref = fv.mlp_jet_bwd_reference(to64(params), h0.double(),
                                            d.double(), None, cot.double())
             run(name, f"{'B3b' if seeded else 'B2'} {key} widths "
@@ -493,6 +552,33 @@ def eager_f64_case(case):
                                banks=banks64)
 
 
+def counted_value_and_grad(torch, name, fn, sub, want):
+    """One value+grad of ``fn`` at ``sub`` after a warm-up, with the kernel
+    launches it made and the peak device memory it took.  Raises unless
+    the launches are ``want`` (kernel -> count; every other kernel 0)."""
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    value_and_grad(fn, sub)   # warm-up
+    torch.cuda.synchronize()
+    fj.reset_launches()
+    fv.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = value_and_grad(fn, sub)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+    expected = dict.fromkeys(launches, 0)
+    expected.update(want)
+    log(f"  {name}: loss {float(loss):.9g}, launches {launches}, peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    if launches != expected or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{name}: launches {launches} != {expected}, "
+                             f"loss {float(loss)}")
+    return loss, grads, launches, peak
+
+
 def check_against_f64(name, case, phase, params, loss, grads):
     """A kernel-path value+grad of a phase loss against the eager float64
     value+grad on the same device: the loss within TOL_LOSS relative, the
@@ -517,8 +603,6 @@ def training_checks(torch, dev, trees):
     Returns per configuration (case, phase loss, subtree, launches)."""
     from pinn_elastodynamics_torch.cases import plate_hole
     from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
-    from pinn_elastodynamics_torch.kernels import fused_jet as fj
-    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
     from pinn_elastodynamics_torch.train.adam import Adam
     from pinn_elastodynamics_torch.train.step import (
         make_grad_step,
@@ -533,19 +617,8 @@ def training_checks(torch, dev, trees):
         params = trees[key]
         phase = dataclasses.replace(case.phases[-1], trainable=trainable)
         fn, sub, _ = _phase_loss_fn(case, phase, params)
-        value_and_grad(fn, sub)   # warm-up
-        torch.cuda.synchronize()
-        fj.reset_launches()
-        fv.reset_launches()
-        loss, grads = value_and_grad(fn, sub)
-        torch.cuda.synchronize()
-        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
-        want = {k: 0 for k in launches}
-        want[fwd] = want[bwd] = 1
-        log(f"  {name}: launches per value+grad {launches}")
-        if launches != want:
-            raise AssertionError(f"{name}: launches {launches} != {want}")
-
+        loss, grads, launches, _ = counted_value_and_grad(
+            torch, name, fn, sub, {fwd: 1, bwd: 1})
         check_against_f64(name, case, phase, params, loss, grads)
 
         for pre in case.phases[:-1]:   # dist, part: eager jets, as in JAX
@@ -636,7 +709,8 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
     wrng = np.random.default_rng(SEED + 6)
     for key, (dims, n_w, _, _, seeded) in WAVE_SHAPES.items():
         params, _, wh, wd = wave_kernel_inputs(torch, dev, wrng, key)
-        wcot = torch.as_tensor(wrng.standard_normal((4, n_w, dims[-1])),
+        s_w = shape_streams(key)
+        wcot = torch.as_tensor(wrng.standard_normal((s_w, n_w, dims[-1])),
                                dtype=torch.float32, device=dev)
         name = "fused_seed_jet_bwd" if seeded else "fused_mlp_jet_bwd"
         seed_elems = wh.numel() + wd.numel()
@@ -647,7 +721,7 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
             lambda: fv.fused_mlp_jet_bwd(params, wh, wd, None, wcot,
                                          full_dx=seeded),
             lambda: fv.mlp_jet_bwd_reference(params, wh, wd, None, wcot),
-            bwd_flops_per_point(dims, 4) * n_w, nbytes,
+            bwd_flops_per_point(dims, s_w) * n_w, nbytes,
             f"{key} n={n_w} order=1", runs=10)
         entry = next(k for k in kernels if k["name"] == name)
         entry.setdefault("wave_shapes", {})[key] = times
@@ -656,6 +730,25 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
         value_and_grad_timings(torch, name, t["case"], t["phase"],
                                t["params"], t["fn"], t["sub"])
     return kernels
+
+
+def turns(torch, fns, warmup=3, runs=5, n_turns=3):
+    """CUDA-event milliseconds of each of ``fns`` (name -> callable) in
+    ``n_turns`` turns of ``runs``, so that a slow spell of the host falls on
+    all of them; name -> list of times."""
+    out = {k: [] for k in fns}
+    for _ in range(n_turns):
+        for k, fn in fns.items():
+            out[k] += cuda_times(torch, fn, warmup=warmup, runs=runs)
+    return out
+
+
+def profile_line(torch, label, fn):
+    wall, busy, rows = device_breakdown(torch, fn, top=6)
+    log(f"  profiled {label}: wall {wall:.4f} s, device busy {busy:.4f} s "
+        f"({100 * busy / wall:.1f}%)")
+    for sec_k, count, key in rows:
+        log(f"    {sec_k:.5f} s  x{count}  {key[:90]}")
 
 
 def value_and_grad_timings(torch, name, case, phase, params, fn, sub):
@@ -668,21 +761,15 @@ def value_and_grad_timings(torch, name, case, phase, params, fn, sub):
 
     eager_case = dataclasses.replace(case, model=eager_copy(case.model))
     efn, esub, _ = _phase_loss_fn(eager_case, phase, params)
-    # In turns, so that a slow spell of the host falls on both paths.
-    ker, eag = [], []
-    for _ in range(3):
-        ker += cuda_times(torch, lambda: value_and_grad(fn, sub), runs=5)
-        eag += cuda_times(torch, lambda: value_and_grad(efn, esub), runs=5)
+    times = turns(torch, {"kernel": lambda: value_and_grad(fn, sub),
+                          "eager": lambda: value_and_grad(efn, esub)})
+    ker, eag = times["kernel"], times["eager"]
     log(f"  value+grad {name}: kernel path {np.median(ker):.3f} ms "
         f"[{min(ker):.3f}, {max(ker):.3f}], eager f32 {np.median(eag):.3f} "
         f"ms [{min(eag):.3f}, {max(eag):.3f}] (CUDA events, median and "
         f"range of 15, in three turns)")
-    wall, busy, rows = device_breakdown(
-        torch, lambda: value_and_grad(fn, sub), top=6)
-    log(f"  profiled value+grad {name}: wall {wall:.4f} s, device busy "
-        f"{busy:.4f} s ({100 * busy / wall:.1f}%)")
-    for sec_k, count, key in rows:
-        log(f"    {sec_k:.5f} s  x{count}  {key[:90]}")
+    profile_line(torch, f"value+grad {name}",
+                 lambda: value_and_grad(fn, sub))
     return float(np.median(ker))
 
 
@@ -706,13 +793,13 @@ def add_launches(total, launches):
     return {k: total[k] + launches[k] for k in total}
 
 
-def lbfgs_run(torch, name, fn, sub, ftol, fwd, bwd):
+def lbfgs_run(torch, name, fn, sub, ftol, per_eval):
     """LBFGS_ITERS L-BFGS iterations of the phase loss ``fn`` from ``sub``
-    through a counting loss: exactly one ``fwd`` and one ``bwd`` launch per
-    evaluation, the final loss below the first; prints iterations/s,
-    line-search evaluations per iteration and the optimizer's host time per
-    iteration (wall less the run's value+grads, each timed to its end).
-    Returns the launches."""
+    through a counting loss: exactly ``per_eval[k]`` launches of kernel k
+    per evaluation and none of any other, the final loss below the first;
+    prints iterations/s, line-search evaluations per iteration and the
+    optimizer's host time per iteration (wall less the run's value+grads,
+    each timed to its end).  Returns the launches and the result."""
     from pinn_elastodynamics_torch.kernels import fused_jet as fj
     from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
     from pinn_elastodynamics_torch.train import lbfgs
@@ -748,7 +835,7 @@ def lbfgs_run(torch, name, fn, sub, ftol, fwd, bwd):
     launches = {**fj.LAUNCHES, **fv.LAUNCHES}
     evals = len(losses)
     want = dict.fromkeys(launches, 0)
-    want[fwd] = want[bwd] = evals
+    want.update({k: per * evals for k, per in per_eval.items()})
     first, final = float(losses[0]), float(res.final_loss)
     n = res.n_iters
     log(f"  {name}: {n} iterations, {evals} evaluations, loss "
@@ -764,7 +851,7 @@ def lbfgs_run(torch, name, fn, sub, ftol, fwd, bwd):
                              f"{launches} != {want}")
     if not (np.isfinite(final) and final < first):
         raise AssertionError(f"{name}: L-BFGS loss {first} -> {final}")
-    return launches
+    return launches, res
 
 
 def lbfgs_checks(torch, trained):
@@ -775,8 +862,9 @@ def lbfgs_checks(torch, trained):
     total = None
     for name, t in trained.items():
         fwd, bwd = TRAIN_CONFIGS[name][3:]
-        total = add_launches(total, lbfgs_run(
-            torch, name, t["fn"], t["sub"], t["phase"].ftol, fwd, bwd))
+        launches, _ = lbfgs_run(torch, name, t["fn"], t["sub"],
+                                t["phase"].ftol, {fwd: 1, bwd: 1})
+        total = add_launches(total, launches)
 
     # The two-loop product at a full memory (50 pairs) at net-BC's uv size.
     net = trained["net_bc"]
@@ -870,6 +958,32 @@ def wave_params(rng, model):
     return {"uv": tree} if net is not model else tree
 
 
+def drive_config(torch, name, case, params, per_eval):
+    """Phase 11's checks of one configuration's only phase (every parameter
+    trained): one value+grad with exactly ``per_eval`` launches; unless
+    that is empty (an eager model), the value+grad against eager float64
+    with its peak device memory, value+grad timings with a profile, and
+    LBFGS_ITERS L-BFGS iterations.  Returns the launches and the L-BFGS
+    result (None for an eager model)."""
+    from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
+
+    n_col = case.banks["collocation"].n_total
+    (phase,) = case.phases
+    fn, sub, _ = _phase_loss_fn(case, phase, params)
+    loss, grads, launches, _ = counted_value_and_grad(
+        torch, f"{name}: N = {n_col}", fn, sub, per_eval)
+    if not per_eval:   # the eager Fourier model kept from JAX
+        return launches, None
+    torch.cuda.reset_peak_memory_stats()
+    check_against_f64(name, case, phase, params, loss, grads)
+    log(f"  {name}: float64 check at scale 1.0, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del grads
+    value_and_grad_timings(torch, name, case, phase, params, fn, sub)
+    more, res = lbfgs_run(torch, name, fn, sub, phase.ftol, per_eval)
+    return add_launches(launches, more), res
+
+
 def wave_checks(torch, dev):
     """Phase 11: the wave configurations at scale 1.0 and full width with
     random weights.  W1-W4: value+grad of the main phase (every parameter
@@ -879,11 +993,7 @@ def wave_checks(torch, dev):
     launch.  Returns the kernel launches of the counted runs."""
     import importlib
 
-    from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
-    from pinn_elastodynamics_torch.kernels import fused_jet as fj
-    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
     from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
-    from pinn_elastodynamics_torch.train.step import value_and_grad
 
     rng = np.random.default_rng(SEED + 7)
     total = None
@@ -896,37 +1006,10 @@ def wave_checks(torch, dev):
         if key is not None and n_col != WAVE_SHAPES[key][1]:
             raise AssertionError(f"{name}: {n_col} collocation points")
         params = params_from_jax(wave_params(rng, case.model), device=dev)
-        (phase,) = case.phases
-        fn, sub, _ = _phase_loss_fn(case, phase, params)
-        value_and_grad(fn, sub)   # warm-up
-        torch.cuda.synchronize()
-        fj.reset_launches()
-        fv.reset_launches()
-        loss, grads = value_and_grad(fn, sub)
-        torch.cuda.synchronize()
-        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
-        want = dict.fromkeys(launches, 0)
-        if fwd is not None:
-            want[fwd] = want[bwd] = 1
-        log(f"  {name}: N = {n_col}, loss {float(loss):.9g}, launches per "
-            f"value+grad {launches}")
-        if launches != want or not bool(torch.isfinite(loss)):
-            raise AssertionError(f"{name}: launches {launches} != {want}, "
-                                 f"loss {float(loss)}")
+        launches, _ = drive_config(torch, name, case, params,
+                                   {} if fwd is None else {fwd: 1, bwd: 1})
         total = add_launches(total, launches)
-        if fwd is None:   # the eager Fourier model kept from JAX
-            log(f"  {name}: {time.perf_counter() - t0:.2f} s")
-            continue
-
-        torch.cuda.reset_peak_memory_stats()
-        check_against_f64(name, case, phase, params, loss, grads)
-        log(f"  {name}: float64 check at scale 1.0, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        del grads
-        value_and_grad_timings(torch, name, case, phase, params, fn, sub)
-        total = add_launches(total, lbfgs_run(torch, name, fn, sub,
-                                              phase.ftol, fwd, bwd))
-        del case, params, fn, sub
+        del case, params
         torch.cuda.empty_cache()
         log(f"  {name}: {time.perf_counter() - t0:.2f} s")
     return total
@@ -1034,6 +1117,344 @@ def curriculum_checks(torch, dev):
                 and np.all(np.isfinite(list(comps.values())))):
             raise AssertionError(f"CLI run: {events}, files {written}")
     return launches
+
+
+def scaled_loss_error(label, loss, ref, limit=TOL_LOSS):
+    rel = abs(float(loss) - float(ref)) / abs(float(ref))
+    if not rel <= limit:
+        raise AssertionError(f"{label}: loss differs by {rel:.2e}")
+    return rel
+
+
+def million_checks(torch, dev):
+    """Phase 13: the microbatched million-point loss (BASELINE config #3).
+    Returns the kernel launches of the counted runs."""
+    from pinn_elastodynamics_torch.cases import wave_confined
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+    from pinn_elastodynamics_torch.train.step import (
+        make_loss_fn,
+        make_microbatched_loss_fn,
+        value_and_grad,
+    )
+
+    case = wave_confined.build(scale=MILLION_SCALE,
+                               pad_to_multiple_of=MILLION_PAD, device=dev)
+    sizes = {k: b.n_total for k, b in case.banks.items()}
+    log(f"  banks {sizes}, {MICROBATCHES} microbatches of "
+        f"{sizes['collocation'] // MICROBATCHES} points")
+    if (sizes["collocation"], sizes["src"]) != (N_MILLION, N_MILLION_SRC):
+        raise AssertionError(f"million-point banks {sizes}")
+    params = params_from_jax(
+        wave_params(np.random.default_rng(SEED + 9), case.model), device=dev)
+    micro = make_microbatched_loss_fn(case.model, case.loss, case.material,
+                                      num_microbatches=MICROBATCHES)
+    full = make_loss_fn(case.model, case.loss, case.material)
+    mfn = lambda p: micro(p, case.banks)[0]
+    ffn = lambda p: full(p, case.banks)[0]
+
+    loss_m, grads_m, launches, peak_m = counted_value_and_grad(
+        torch, "microbatched value+grad", mfn, params,
+        {"fused_mlp_jet": 2 * MICROBATCHES,
+         "fused_mlp_jet_bwd": MICROBATCHES})
+    total = dict(launches)
+    loss_f, grads_f, launches, peak_f = counted_value_and_grad(
+        torch, "full-batch value+grad", ffn, params,
+        {"fused_mlp_jet": 1, "fused_mlp_jet_bwd": 1})
+    total = add_launches(total, launches)
+    rel = scaled_loss_error("microbatched against full batch", loss_m, loss_f)
+    g_scaled, g_abs = check_grads("microbatched against full batch",
+                                  grads_m, grads_f)
+    log(f"  microbatched against full batch: loss rel {rel:.2e}, gradients "
+        f"{g_scaled:.3e} (max abs {g_abs:.3e})")
+    del grads_f
+
+    # Eager float64, microbatched: the full batch would need about 94 GB.
+    case64 = eager_f64_case(case)
+    micro64 = make_microbatched_loss_fn(case64.model, case64.loss,
+                                        case64.material,
+                                        num_microbatches=MICROBATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    loss64, grads64 = value_and_grad(lambda p: micro64(p, case64.banks)[0],
+                                     to64(params))
+    torch.cuda.synchronize()
+    peak64 = torch.cuda.max_memory_allocated()
+    for label, loss in (("microbatched", loss_m), ("full batch", loss_f)):
+        rel = scaled_loss_error(f"{label} against f64", loss, loss64)
+        log(f"  {label} kernel path {float(loss):.9g} against microbatched "
+            f"eager f64 {float(loss64):.9g} ({MICROBATCHES} microbatches): "
+            f"rel {rel:.2e}")
+    g_scaled, g_abs = check_grads("microbatched against f64", grads_m,
+                                  grads64)
+    log(f"  microbatched gradients against f64: {g_scaled:.3e} (max abs "
+        f"{g_abs:.3e}); peak device memory: microbatched "
+        f"{peak_m / 2**30:.2f} GiB, full batch {peak_f / 2**30:.2f} GiB, "
+        f"eager f64 with {MICROBATCHES} microbatches {peak64 / 2**30:.2f} GiB")
+    del case64, micro64, grads64, grads_m
+    torch.cuda.empty_cache()
+
+    times = turns(torch, {"micro": lambda: value_and_grad(mfn, params),
+                          "full": lambda: value_and_grad(ffn, params)},
+                  warmup=1)
+    m, f = times["micro"], times["full"]
+    log(f"  value+grad: microbatched {np.median(m):.3f} ms [{min(m):.3f}, "
+        f"{max(m):.3f}], full batch {np.median(f):.3f} ms [{min(f):.3f}, "
+        f"{max(f):.3f}] (CUDA events, median and range of 15, in three "
+        f"turns)")
+    profile_line(torch, "microbatched value+grad",
+                 lambda: value_and_grad(mfn, params))
+    launches, _ = lbfgs_run(torch, "microbatched L-BFGS", mfn, params,
+                            case.phases[0].ftol,
+                            {"fused_mlp_jet": 2 * MICROBATCHES,
+                             "fused_mlp_jet_bwd": MICROBATCHES})
+    del case, params
+    torch.cuda.empty_cache()
+    return add_launches(total, launches)
+
+
+def endgame_checks(torch, dev, trees):
+    """Phase 14: the extended-precision endgame on the plate's net-BC and
+    analytic + Fourier64 configurations at scale 1.0.  Returns the kernel
+    launches of the counted runs."""
+    from pinn_elastodynamics_torch.cases import plate_hole
+    from pinn_elastodynamics_torch.cases.base import (
+        _phase_loss_fn,
+        mixed_precision_phase_fn,
+    )
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.train.lbfgs_host import (
+        make_host_phase_vg,
+        make_preconditioned_vg,
+        minimize_host,
+    )
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+    from pinn_elastodynamics_torch.utils.tree import tree_leaves
+
+    total = None
+    for name, (kw, trainable, key, fwd, bwd) in ENDGAME_CONFIGS.items():
+        t0 = time.perf_counter()
+        case = plate_hole.build(scale=1.0, device=dev, **kw)
+        phase = dataclasses.replace(case.phases[-1], trainable=trainable)
+        params = trees[key]
+        host_vg, x0, unravel = make_host_phase_vg(case, phase, params)
+        log(f"  {name}: {x0.size} trainable parameters ({trainable})")
+
+        # The eager float64 reference on the card.
+        fn64, sub64, _ = _phase_loss_fn(eager_f64_case(case), phase,
+                                        to64(params))
+        loss64, grads64 = value_and_grad(fn64, sub64)
+        g64 = torch.cat([t.reshape(-1) for t in tree_leaves(grads64)])
+        del grads64
+
+        host_vg(x0)   # warm-up
+        torch.cuda.synchronize()
+        fj.reset_launches()
+        fv.reset_launches()
+        f_host, g_host = host_vg(x0)
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        want = dict.fromkeys(launches, 0)
+        want[fwd] = want[bwd] = 1
+        if launches != want:
+            raise AssertionError(f"{name}: host_vg launches {launches}")
+        total = add_launches(total, launches)
+        rel = scaled_loss_error(f"{name} host_vg", f_host, loss64)
+        g_scaled, g_abs = max_scaled(torch.as_tensor(g_host, device=dev), g64)
+        log(f"  {name} host_vg: loss {f_host:.12g} (eager f64 "
+            f"{float(loss64):.12g}, rel {rel:.2e}), gradient {g_scaled:.3e} "
+            f"(max abs {g_abs:.3e}), launches {launches}")
+        if not g_scaled <= TOL_GRAD:
+            raise AssertionError(f"{name}: host_vg gradient {g_scaled:.3e}")
+
+        # One device-to-host copy per evaluation (profiler).
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            host_vg(x0)
+            torch.cuda.synchronize()
+        d2h = sum(evt.count for evt in prof.key_averages()
+                  if "DtoH" in evt.key or "Device -> Pageable" in evt.key)
+        if d2h != 1:
+            raise AssertionError(f"{name}: {d2h} device-to-host copies per "
+                                 f"host_vg")
+        z32 = torch.as_tensor(x0.astype(np.float32), device=dev)
+        packed = host_vg.device(z32)
+        arr = packed.cpu().numpy()
+        split = {
+            "host_vg": host_ms(torch, lambda: host_vg(x0)),
+            "device value+grad": host_ms(torch,
+                                         lambda: host_vg.device(z32)),
+            "copy": host_ms(torch, lambda: packed.cpu()),
+            "host sums": host_ms(torch, lambda: host_vg.host(arr)),
+        }
+        log(f"  {name} host_vg: {d2h} device-to-host copy of {arr.size} "
+            f"floats; " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                    split.items())
+            + " (host clock, median of 5)")
+
+        # minimize_host: straight, resumed, whitened.
+        evals, eval_ms = [0], []
+
+        def timed_vg(z):
+            start = time.perf_counter()
+            out = host_vg(z)
+            eval_ms.append(1e3 * (time.perf_counter() - start))
+            evals[0] += 1
+            return out
+
+        fj.reset_launches()
+        fv.reset_launches()
+        start = time.perf_counter()
+        straight = minimize_host(timed_vg, x0, maxiter=ENDGAME_ITERS,
+                                 memory_size=50)
+        wall_ms = 1e3 * (time.perf_counter() - start)
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        want = dict.fromkeys(launches, 0)
+        want[fwd] = want[bwd] = straight.n_evals
+        hist = straight.loss_history
+        n = straight.n_iters
+        log(f"  {name} minimize_host: {n} iterations, {straight.n_evals} "
+            f"evaluations ({straight.converged}), loss {hist[0]:.9g} -> "
+            f"{hist[-1]:.9g}; {1e3 * n / wall_ms:.3f} it/s, "
+            f"{(straight.n_evals - 1) / n:.2f} line-search evaluations per "
+            f"iteration, host_vg {np.median(eval_ms):.3f} ms [{min(eval_ms):.3f}"
+            f", {max(eval_ms):.3f}], host optimizer "
+            f"{(wall_ms - sum(eval_ms)) / n:.3f} ms per iteration; launches "
+            f"{launches}")
+        if (n != ENDGAME_ITERS or launches != want
+                or not hist[-1] < hist[0]):
+            raise AssertionError(f"{name}: minimize_host {n} iterations, "
+                                 f"launches {launches}, history {hist}")
+        total = add_launches(total, launches)
+
+        fj.reset_launches()
+        fv.reset_launches()
+        half = ENDGAME_ITERS // 2
+        first = minimize_host(host_vg, x0, maxiter=half, memory_size=50)
+        second = minimize_host(host_vg, first.x, maxiter=ENDGAME_ITERS - half,
+                               memory_size=50, init_carry=first.carry)
+        same = (np.array_equal(second.x, straight.x)
+                and second.final_loss == straight.final_loss)
+        log(f"  {name} resumed {half} + {ENDGAME_ITERS - half}: loss "
+            f"{second.final_loss:.12g}, straight {straight.final_loss:.12g}, "
+            f"bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"{name}: the resumed host run differs")
+        total = add_launches(total, {**fj.LAUNCHES, **fv.LAUNCHES})
+
+        # Per-leaf Jacobi whitening, as scripts/hybrid_endgame.py builds it.
+        fj.reset_launches()
+        fv.reset_launches()
+        _, g0 = host_vg(x0)
+        sizes = [t.numel() for t in tree_leaves(unravel(x0))]
+        rmses, off = [], 0
+        for sz in sizes:
+            blk = g0[off:off + sz]
+            rmses.append(max(float(np.sqrt((blk * blk).mean())), 1e-30))
+            off += sz
+        ref_rms = float(np.median(rmses))
+        d = np.concatenate([np.full(sz, ref_rms / r, np.float64)
+                            for sz, r in zip(sizes, rmses)])
+        vg_u, to_u, _ = make_preconditioned_vg(host_vg, d)
+        pre = minimize_host(vg_u, to_u(x0), maxiter=5, memory_size=50)
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        if not launches[fwd] == launches[bwd] == pre.n_evals + 1:
+            raise AssertionError(f"{name}: whitened launches {launches}")
+        total = add_launches(total, launches)
+        log(f"  {name} whitened: d in [{d.min():.3g}, {d.max():.3g}], "
+            f"{pre.n_iters} iterations, {pre.n_evals} evaluations, loss "
+            f"{pre.loss_history[0]:.9g} -> {pre.final_loss:.9g}")
+        if not pre.final_loss < pre.loss_history[0]:
+            raise AssertionError(f"{name}: whitened loss did not fall")
+
+        # Float64 parameters over the f32 compute path on the device.
+        sub_fn, sub0, _ = mixed_precision_phase_fn(case, phase,
+                                                   to64(params))
+        loss, grads, launches, _ = counted_value_and_grad(
+            torch, f"{name} mixed precision", sub_fn, sub0, {fwd: 1, bwd: 1})
+        total = add_launches(total, launches)
+        dtypes = {str(t.dtype) for t in tree_leaves(grads)} | {str(loss.dtype)}
+        if dtypes != {"torch.float64"}:
+            raise AssertionError(f"{name}: mixed precision dtypes {dtypes}")
+        rel = scaled_loss_error(f"{name} mixed precision", loss, loss64)
+        g_scaled, g_abs = max_scaled(
+            torch.cat([t.reshape(-1) for t in tree_leaves(grads)]), g64)
+        log(f"  {name} mixed precision: loss {float(loss):.12g} (rel "
+            f"{rel:.2e}), gradient {g_scaled:.3e} (max abs {g_abs:.3e}), "
+            f"float64 loss and gradients")
+        if not g_scaled <= TOL_GRAD:
+            raise AssertionError(f"{name}: mixed gradient {g_scaled:.3e}")
+        launches, res = lbfgs_run(torch, f"{name} mixed precision", sub_fn,
+                                  sub0, phase.ftol, {fwd: 1, bwd: 1})
+        total = add_launches(total, launches)
+        if {t.dtype for t in tree_leaves(res.params)} != {torch.float64}:
+            raise AssertionError(f"{name}: the f64 tree left float64")
+        del case, g64
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def elastic3d_checks(torch, dev):
+    """Phase 15: the 3D case and its MMS case at scale 1.0, then the CLI.
+    Returns the kernel launches of the counted runs."""
+    import os
+    import tempfile
+
+    from pinn_elastodynamics_torch.cases import elastic3d
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+
+    rng = np.random.default_rng(SEED + 10)
+    total = None
+    for name, (builder, key) in ELASTIC3D_CONFIGS.items():
+        t0 = time.perf_counter()
+        case = getattr(elastic3d, builder)(scale=1.0, device=dev)
+        n_col = case.banks["collocation"].n_total
+        dims, n_want = WAVE_SHAPES[key][:2]
+        if n_col != n_want or list(case.model.layers) != dims:
+            raise AssertionError(f"{name}: {n_col} points, widths "
+                                 f"{case.model.layers}")
+        params = params_from_jax(mlp_tree(rng, dims), device=dev)
+        mms = builder == "build_mms"
+        before = elastic3d.mms_errors(case.model, params) if mms else None
+        launches, res = drive_config(
+            torch, name, case, params,
+            {"fused_mlp_jet": 1, "fused_mlp_jet_bwd": 1})
+        total = add_launches(total, launches)
+        if mms:
+            after = elastic3d.mms_errors(case.model, res.params)
+            log(f"  {name} mms_errors before: " + ", ".join(
+                f"{k} {v:.4g}" for k, v in before.items()))
+            log(f"  {name} mms_errors after {res.n_iters} iterations: "
+                + ", ".join(f"{k} {v:.4g}" for k, v in after.items()))
+            if not all(np.isfinite(v) for v in after.values()):
+                raise AssertionError(f"{name}: mms_errors {after}")
+        del case, params, res
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.2f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli3d")
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pinn_elastodynamics_torch.run",
+             *CLI_3D_ARGS, "--out", out],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"3D CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            events = {e["event"]: e for e in map(json.loads, f)}
+        log(f"  CLI {' '.join(CLI_3D_ARGS)}: exit 0 in "
+            f"{time.perf_counter() - start:.2f} s, start {events['start']}, "
+            f"phase_end {events['phase_end']}, components "
+            f"{events['train_done']['components']}")
+        comps = events["train_done"]["components"]
+        if not ("cuda" in events["start"]["devices"][0]
+                and np.all(np.isfinite(list(comps.values())))):
+            raise AssertionError(f"3D CLI run: {events}")
+    return total
 
 
 def eager_copy(model):
@@ -1300,10 +1721,11 @@ def main() -> int:
                 plain = lambda: fj.fused_jet_reference(params, x, order=1,
                                                        lb=lb, ub=ub)
                 in_bytes = 4 * x.numel()
+            s_w = shape_streams(key)
             wave_fwd[key] = time_kernel(
                 torch, "fused_mlp_jet", kern, plain,
-                flops_per_point(dims, 4) * n,
-                in_bytes + 4 * 4 * n * dims[-1] + 4 * n_params(params),
+                flops_per_point(dims, s_w) * n,
+                in_bytes + 4 * s_w * n * dims[-1] + 4 * n_params(params),
                 f"{key} n={n} order=1")
     kernels = [{
         "name": name, "route": "cuda",
@@ -1378,10 +1800,26 @@ def main() -> int:
     t0 = time.perf_counter()
     curriculum_launches = curriculum_checks(torch, dev)
     log(f"phase curriculum and CLI: {time.perf_counter() - t0:.2f} s")
+
+    # 13. The microbatched million-point loss.
+    t0 = time.perf_counter()
+    million_launches = million_checks(torch, dev)
+    log(f"phase million: {time.perf_counter() - t0:.2f} s")
+
+    # 14. The extended-precision endgame.
+    t0 = time.perf_counter()
+    endgame_launches = endgame_checks(torch, dev, trees)
+    log(f"phase endgame: {time.perf_counter() - t0:.2f} s")
+
+    # 15. The 3D case, its MMS case and the 3D CLI.
+    t0 = time.perf_counter()
+    elastic3d_launches = elastic3d_checks(torch, dev)
+    log(f"phase elastic3d: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         k["launches"] += sum(counts[k["name"]] for counts in (
             lbfgs_launches, pipe_launches, wave_launches,
-            curriculum_launches))
+            curriculum_launches, million_launches, endgame_launches,
+            elastic3d_launches))
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,14 +1,18 @@
 """PyTorch/CUDA port of the PINN elastodynamics framework.
 
 A second package beside ``pinn_elastodynamics_tpu`` (the JAX reference),
-written for one NVIDIA H100.  It covers the quarter-plate case and the
-three elastic-wave cases end to end, and serving: jet algebra, the
-tanh-MLP jet, the field models (net-BC composite, Fourier features,
-closed-form hard BCs), residuals and traction, point banks, declarative
-losses, the cases and their phases, value+grad, Adam, L-BFGS with a zoom
-line search, the phase pipeline and the time-horizon curriculum with
-checkpoint and resume, the CLI (``python -m
-pinn_elastodynamics_torch.run``), rendering and the HTTP field server.
+written for one NVIDIA H100.  It covers the quarter-plate case, the
+three elastic-wave cases and the 3D case (with its plane-wave MMS oracle)
+end to end, and serving: jet algebra, the tanh-MLP jet, the field models
+(net-BC composite, Fourier features, closed-form hard BCs), residuals and
+traction, point banks, declarative losses, the cases and their phases,
+value+grad and the microbatched loss for 1M+ point banks, Adam, L-BFGS
+with a zoom line search, the extended-precision endgame (float64
+parameters over float32 compute, ``mixed_precision_phase_fn``; host
+float64 L-BFGS over chunk-summed losses, ``train/lbfgs_host.py``), the
+phase pipeline and the time-horizon curriculum with checkpoint and
+resume, the CLI (``python -m pinn_elastodynamics_torch.run``), rendering
+and the HTTP field server.
 The fused jets and their backward run as hand-written CUDA kernels
 (kernels/csrc/), built with ``nvcc`` at first use and reached through
 autograd Functions (kernels/fused_jet_vjp.py); this module does not load

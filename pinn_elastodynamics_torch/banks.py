@@ -71,6 +71,36 @@ def make_bank(
     )
 
 
+class ChunkSumCollector:
+    """Collects per-chunk partial sums of every masked square-and-mean.
+
+    The device side of the host-f64 loss (train/lbfgs_host.py): instead of
+    one f32-rounded scalar per loss component, the device emits
+    ``n_chunks`` partial sums, which the host adds in float64, so the loss
+    resolves to about eps32/n_chunks instead of eps32.
+
+    Entries are appended on every evaluation, so use a fresh collector per
+    call.  ``names``, ``arrays`` and ``counts`` line up entry by entry.
+    """
+
+    def __init__(self, chunk_size: int = 512):
+        self.chunk_size = chunk_size
+        self.names = []    # component name per entry
+        self.arrays = []   # (n_chunks,) chunk sums per entry, r's dtype
+        self.counts = []   # 0-d valid-point count per entry
+
+    def add(self, name: str, r: torch.Tensor, mask: torch.Tensor):
+        if r.ndim > 1:
+            r = r.reshape(r.shape[0])
+        q = r * r * mask
+        pad = (-q.shape[0]) % self.chunk_size
+        if pad:
+            q = torch.cat([q, q.new_zeros(pad)])
+        self.names.append(name)
+        self.arrays.append(q.reshape(-1, self.chunk_size).sum(dim=1))
+        self.counts.append(torch.sum(mask))
+
+
 def masked_mean_square(r: torch.Tensor, mask: torch.Tensor,
                        dtype=None) -> torch.Tensor:
     """mean(r²) over valid points — the reference's reduce_mean(square).

@@ -6,8 +6,9 @@ loss with a frozen remainder (:func:`_phase_loss_fn`) and
 :func:`run_pipeline`, which runs the case's phases (the net-BC plate's
 dist → part → uv curriculum, train.py:958-968) with L-BFGS, an optional
 Adam warm-up before the last phase, and checkpoints that resume an
-interrupted phase.  The extended-precision phase loss
-(``mixed_precision_phase_fn``) is not ported yet.
+interrupted phase, and the extended-precision phase loss
+(:func:`mixed_precision_phase_fn`: float64 parameters and loss tail over
+the float32 compute path).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..train.checkpoint import (
     save_checkpoint,
     tensors_from_checkpoint,
 )
+from ..utils.tree import tree_map
 from ..utils.treepath import path_get, path_set
 
 
@@ -131,6 +133,51 @@ def _phase_loss_fn(case: Case, phase: Phase, params):
         return path_set(p, key, sub)
 
     return sub_fn, path_get(params, key), merge
+
+
+def mixed_precision_phase_fn(case: Case, phase: Phase, params64):
+    """Extended-precision phase loss: float64 parameter and optimizer space
+    over the float32 compute path.
+
+    Near the optimum the per-iteration loss decrease and the curvature
+    pairs fall below f32 resolution (docs/STATUS_r2.md); the reference
+    trains entirely in f64 on the CPU (train.py:115).  Here the jets stay
+    f32 (the CUDA kernels on a CUDA tensor): the parameters are cast
+    f64 -> f32 at the model boundary by a differentiable ``.to``, so the
+    gradients come back float64, while the square-and-reduce tail
+    (``LossSpec.accum_dtype``) and every L-BFGS internal run in float64.
+    The case's banks must be float32, like the parameters the model sees.
+
+    Returns (sub_fn, sub0, merge) like :func:`_phase_loss_fn`, over f64
+    trees.
+    """
+    spec64 = dataclasses.replace(phase.loss, accum_dtype="float64")
+
+    def to32(tree):
+        return tree_map(lambda t: t.to(torch.float32), tree)
+
+    if phase.trainable is None:
+        def sub_fn(p64):
+            total, _ = spec64.evaluate(case.model, to32(p64), case.material,
+                                       case.banks)
+            return phase.scale * total
+
+        return sub_fn, params64, lambda p, sub: sub
+
+    key = phase.trainable
+    frozen32 = to32(params64)
+
+    def sub_fn(sub64):
+        total, _ = spec64.evaluate(
+            case.model, path_set(frozen32, key, to32(sub64)),
+            case.material, case.banks,
+        )
+        return phase.scale * total
+
+    def merge(p, sub):
+        return path_set(p, key, sub)
+
+    return sub_fn, path_get(params64, key), merge
 
 
 def run_pipeline(

@@ -23,6 +23,15 @@ from ..ops.elasticity import Material
 DT_PREFIX = "dt:"  # channel name "dt:u" = time derivative of channel u
 
 
+def _mms(r, mask, dtype, collector, name):
+    """masked_mean_square, and the chunk sums of the same square into
+    ``collector`` when one is given (banks.ChunkSumCollector, the host-f64
+    loss of train/lbfgs_host.py)."""
+    if collector is not None:
+        collector.add(name, r, mask)
+    return masked_mean_square(r, mask, dtype)
+
+
 def _net_view(model, params, net: Optional[str]):
     """The full (possibly composite) model, or one of a composite's
     sub-networks ('uv' | 'dist' | 'part')."""
@@ -45,14 +54,16 @@ class PDEResidual:
     name_s: str = "f_s"
 
     def evaluate(self, model, params, mat: Material, bank: PointBank,
-                 accum_dtype=None):
+                 accum_dtype=None, collector=None):
         spec: FieldSpec = model.spec
         jet = model.jet(params, bank.xyt)
         res = res_ops.residuals(jet, spec, mat, self.plane)
         return {
-            self.name_uv: sum(masked_mean_square(res[n], bank.mask, accum_dtype)
+            self.name_uv: sum(_mms(res[n], bank.mask, accum_dtype, collector,
+                                   self.name_uv)
                               for n in res_ops.momentum_group(spec)),
-            self.name_s: sum(masked_mean_square(res[n], bank.mask, accum_dtype)
+            self.name_s: sum(_mms(res[n], bank.mask, accum_dtype, collector,
+                                  self.name_s)
                              for n in res_ops.stress_group(spec)),
         }
 
@@ -73,7 +84,7 @@ class FieldTarget:
     net: Optional[str] = None
 
     def evaluate(self, model, params, mat: Material, bank: PointBank,
-                 accum_dtype=None):
+                 accum_dtype=None, collector=None):
         del mat
         net, net_params = _net_view(model, params, self.net)
         if any(c.startswith(DT_PREFIX) for c in self.channels):
@@ -90,7 +101,8 @@ class FieldTarget:
                 pred = fields[:, net.spec.index(ch)]
             if targets is not None:
                 pred = pred - (targets[:, j] if targets.ndim > 1 else targets)
-            total = total + masked_mean_square(pred, bank.mask, accum_dtype)
+            total = total + _mms(pred, bank.mask, accum_dtype, collector,
+                                 self.name)
         return {self.name: total}
 
 
@@ -107,7 +119,7 @@ class Traction:
     net: Optional[str] = None
 
     def evaluate(self, model, params, mat: Material, bank: PointBank,
-                 accum_dtype=None):
+                 accum_dtype=None, collector=None):
         del mat
         net, net_params = _net_view(model, params, self.net)
         fields = net.apply(net_params, bank.xyt)
@@ -123,7 +135,8 @@ class Traction:
         for j, c in enumerate(comps):
             if targets is not None:
                 c = c - targets[:, j]
-            total = total + masked_mean_square(c, bank.mask, accum_dtype)
+            total = total + _mms(c, bank.mask, accum_dtype, collector,
+                                 self.name)
         return {self.name: total}
 
 
@@ -137,15 +150,15 @@ class Regression:
     net: Optional[str] = None
 
     def evaluate(self, model, params, mat: Material, bank: PointBank,
-                 accum_dtype=None):
+                 accum_dtype=None, collector=None):
         del mat
         net, net_params = _net_view(model, params, self.net)
         pred = net.apply(net_params, bank.xyt)
         targets = bank.values[self.target_key]
         total = _zero(pred, accum_dtype)
         for j in range(pred.shape[1]):
-            total = total + masked_mean_square(pred[:, j] - targets[:, j],
-                                               bank.mask, accum_dtype)
+            total = total + _mms(pred[:, j] - targets[:, j], bank.mask,
+                                 accum_dtype, collector, self.name)
         return {self.name: total}
 
 
@@ -167,13 +180,17 @@ class LossSpec:
         return dict(self.weights)
 
     def evaluate(self, model, params, mat: Material,
-                 banks: Dict[str, PointBank]):
-        """Returns (total_scalar, components_dict)."""
+                 banks: Dict[str, PointBank], collector=None):
+        """Returns (total_scalar, components_dict).
+
+        ``collector`` (banks.ChunkSumCollector) also records every
+        component's per-chunk partial sums, for the host-f64 loss.
+        """
         adt = getattr(torch, self.accum_dtype) if self.accum_dtype else None
         comps: Dict[str, torch.Tensor] = {}
         for bank_name, term in self.terms:
             out = term.evaluate(model, params, mat, banks[bank_name],
-                                accum_dtype=adt)
+                                accum_dtype=adt, collector=collector)
             for k, v in out.items():
                 comps[k] = comps[k] + v if k in comps else v
         wmap = self.weight_map()

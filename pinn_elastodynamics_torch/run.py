@@ -30,6 +30,7 @@ CASES = {
     "wave_confined": "pinn_elastodynamics_torch.cases.wave_confined",
     "wave_infinite": "pinn_elastodynamics_torch.cases.wave_infinite",
     "wave_semi_infinite": "pinn_elastodynamics_torch.cases.wave_semi_infinite",
+    "elastic3d": "pinn_elastodynamics_torch.cases.elastic3d",
 }
 NOT_PORTED = {
     "compare_fem": "--compare-fem needs the FEM comparison (eval/metrics.py, "

@@ -2,8 +2,10 @@
 
 Counterpart of ``make_loss_fn`` and ``make_grad_step`` in
 ``pinn_elastodynamics_tpu/train/step.py``: one step is value+grad over every
-point bank, the optimizer update, and the per-component losses.  The
-microbatched loss is not ported yet.
+point bank, the optimizer update, and the per-component losses; and
+``make_microbatched_loss_fn``, the collocation bank in sequential chunks
+whose activations the backward recomputes (gradient accumulation for 1M+
+point banks).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..banks import PointBank
 from ..losses.terms import LossSpec
@@ -66,3 +69,67 @@ def make_grad_step(model, spec: LossSpec, material: Material,
         return apply_updates(params, updates), opt_state, loss, comps
 
     return step
+
+
+def make_microbatched_loss_fn(
+    model,
+    spec: LossSpec,
+    material: Material,
+    *,
+    collocation_key: str = "collocation",
+    num_microbatches: int = 1,
+) -> Callable:
+    """Loss with the collocation bank processed in ``num_microbatches``
+    sequential chunks — gradient accumulation for 1M+ point banks
+    (BASELINE.json config #3) without keeping every chunk's activations.
+
+    Each chunk runs under ``torch.utils.checkpoint`` (non-reentrant), so the
+    backward recomputes a chunk's forward instead of storing it; this takes
+    the place of ``jax.checkpoint`` inside ``lax.scan`` in the JAX package,
+    and a Python loop over contiguous slices takes the place of the scan.
+    The PDE components are the count-weighted mean over chunks, which
+    equals the full-bank masked mean; non-collocation terms are evaluated
+    once, full batch.
+    """
+    col_terms = tuple(t for t in spec.terms if t[0] == collocation_key)
+    other_terms = tuple(t for t in spec.terms if t[0] != collocation_key)
+    col_spec = LossSpec(terms=col_terms, weights=spec.weights)
+    other_spec = LossSpec(terms=other_terms, weights=spec.weights)
+
+    def loss_fn(params, banks: Dict[str, PointBank]):
+        bank = banks[collocation_key]
+        n = bank.n_total
+        if n % num_microbatches:
+            raise ValueError(
+                f"collocation bank size {n} not divisible by "
+                f"{num_microbatches} microbatches"
+            )
+        chunk = n // num_microbatches
+
+        def chunk_sums(params, i):
+            # narrow on dim 0 keeps each slice contiguous, as the kernels
+            # require.
+            sl = lambda a: a.narrow(0, i * chunk, chunk)
+            sub = PointBank(xyt=sl(bank.xyt), mask=sl(bank.mask),
+                            values={k: sl(v) for k, v in bank.values.items()})
+            c = torch.sum(sub.mask)
+            _, comps = col_spec.evaluate(model, params, material,
+                                         {collocation_key: sub})
+            return {k: v * c for k, v in comps.items()}, c
+
+        sums = dict.fromkeys(("f_uv", "f_s"), 0.0)
+        count = 0.0
+        for i in range(num_microbatches):
+            new_sums, c = checkpoint(chunk_sums, params, i,
+                                     use_reentrant=False)
+            sums = {k: sums[k] + new_sums[k] for k in sums}
+            count = count + c
+        comps = {k: v / torch.clamp(count, min=1.0) for k, v in sums.items()}
+
+        _, comps_other = other_spec.evaluate(model, params, material, banks)
+        wmap = spec.weight_map()
+        comps_all = {**comps_other, **comps}
+        total = sum(wmap.get(k, 0.0) * v for k, v in comps_all.items())
+        return total, comps_all
+
+    return loss_fn

@@ -125,10 +125,32 @@ def test_cli_flags_not_ported_exit_nonzero(tmp_path, capsys, flag, item):
 
 
 def test_cli_rejects_cases_not_ported(capsys):
+    """The inverse case is not ported (nor a ``--case`` of the JAX CLI)."""
     with pytest.raises(SystemExit) as exc:
-        cli.main(["--case", "elastic3d", "--device", "cpu"])
+        cli.main(["--case", "inverse", "--device", "cpu"])
     assert exc.value.code == 2
     assert "invalid choice" in capsys.readouterr().err
+
+
+def test_cli_elastic3d_on_the_cpu(tmp_path):
+    """The 3D case trains its one phase through the CLI and exports its
+    4 -> 100 x 6 -> 12 net as a reference pickle."""
+    out = str(tmp_path / "3d")
+    assert cli.main(["--case", "elastic3d", "--scale", "0.001", "--out", out,
+                     "--maxiter", "uv=3", "--segment", "2", "--log-every",
+                     "0", "--device", "cpu"]) == 0
+    events = _events(out)
+    (start,) = [e for e in events if e["event"] == "start"]
+    (phase_end,) = [e for e in events if e["event"] == "phase_end"]
+    (done,) = [e for e in events if e["event"] == "train_done"]
+    assert start["case"] == "elastic_wave_3d" and start["devices"] == ["cpu"]
+    assert phase_end["phase"] == "uv" and phase_end["iters"] == 4
+    assert sorted(done["components"]) == ["IC", "SRC", "f_s", "f_uv"]
+    assert all(np.isfinite(v) for v in done["components"].values())
+    params = tckpt.load_reference_pickle(
+        os.path.join(out, "elastic_wave_3d_uv.pickle"), device="cpu")
+    assert [tuple(l["W"].shape) for l in params] == (
+        [(4, 100)] + [(100, 100)] * 5 + [(100, 12)])
 
 
 def test_cli_defaults_to_the_gpu(monkeypatch, tmp_path):

@@ -157,7 +157,8 @@ print(len(names), bad)
 MUST_WALK = {f"pinn_elastodynamics_torch.{m}" for m in (
     "run", "serving", "cases.plate_hole", "cases.wave_common",
     "cases.wave_confined", "cases.wave_infinite", "cases.wave_semi_infinite",
-    "train.curriculum", "train.lbfgs", "utils.logging")}
+    "train.curriculum", "train.lbfgs", "utils.logging", "cases.elastic3d",
+    "train.lbfgs_host", "train.step")}
 
 
 def test_port_never_imports_jax():
