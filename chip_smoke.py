@@ -195,7 +195,7 @@ ENDGAME_CONFIGS = {
         "uv.mlp", 1, "fused_mlp_jet", "fused_seed_jet_bwd"),
 }
 ENDGAME_ITERS = 10
-# Phase 15: name -> (builder of cases/elastic3d.py, kernel shape).
+# Phase 15: name -> (build function of cases/elastic3d.py, kernel shape).
 ELASTIC3D_CONFIGS = {"E1_elastic3d": ("build", "E1"),
                      "E2_elastic3d_mms": ("build_mms", "E2")}
 CLI_3D_ARGS = ("--case", "elastic3d", "--scale", "0.01", "--maxiter", "uv=4",
@@ -1406,16 +1406,16 @@ def elastic3d_checks(torch, dev):
 
     rng = np.random.default_rng(SEED + 10)
     total = None
-    for name, (builder, key) in ELASTIC3D_CONFIGS.items():
+    for name, (build_name, key) in ELASTIC3D_CONFIGS.items():
         t0 = time.perf_counter()
-        case = getattr(elastic3d, builder)(scale=1.0, device=dev)
+        case = getattr(elastic3d, build_name)(scale=1.0, device=dev)
         n_col = case.banks["collocation"].n_total
         dims, n_want = WAVE_SHAPES[key][:2]
         if n_col != n_want or list(case.model.layers) != dims:
             raise AssertionError(f"{name}: {n_col} points, widths "
                                  f"{case.model.layers}")
         params = params_from_jax(mlp_tree(rng, dims), device=dev)
-        mms = builder == "build_mms"
+        mms = build_name == "build_mms"
         before = elastic3d.mms_errors(case.model, params) if mms else None
         launches, res = drive_config(
             torch, name, case, params,

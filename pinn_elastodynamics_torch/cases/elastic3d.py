@@ -9,9 +9,9 @@ structure of ElasticWaveConfined (ElasticWave.py:282-348) in 3D.  Also the
 plane-P-wave manufactured solution (``build_mms``, ``mms_errors``), the
 accuracy oracle of the 3D case.
 
-Both builders take ``jet_impl`` (default ``"auto"``: the fused kernels on a
-CUDA tensor), as the wave builders do; the JAX main-net builder leaves its
-model on the plain jet.
+``build`` and ``build_mms`` take ``jet_impl`` (default ``"auto"``: the fused
+kernels on a CUDA tensor), as the wave cases' ``build`` functions do; the
+JAX ``build_model`` leaves the main net on the plain jet.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ emits every loss component's per-chunk partial sums
 (``banks.ChunkSumCollector``); the host adds those in float64 and runs the
 whole optimizer — two-loop recursion, curvature memory, strong-Wolfe zoom
 line search, scipy's ftol rule — in numpy float64.  That is the reference's
-own host/device split (scipy and a TF session, train.py:219-247,508-525),
+own host/device split (scipy around TensorFlow, train.py:219-247,508-525),
 with noise-aware safeguards (cautious curvature acceptance) because the
 gradient itself carries f32 noise.
 

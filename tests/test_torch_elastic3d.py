@@ -55,7 +55,7 @@ def _close(got, want, rel=REL):
     np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale)
 
 
-# name -> (JAX builder, port builder, widths)
+# name -> (JAX build function, port build function, widths)
 CONFIGS = {
     "main": (j3.build, t3.build, [4] + [100] * 6 + [12]),
     "mms": (j3.build_mms, t3.build_mms, [4] + [64] * 5 + [12]),
