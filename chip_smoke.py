@@ -97,6 +97,34 @@ use only), then, in order:
    ``mms_errors`` before and after the MMS iterations, then ``python -m
    pinn_elastodynamics_torch.run --case elastic3d`` in a subprocess.
    Phases 3, 5, 6 and 8 hold and time B1 and B2 at both 3D shapes too;
+16. the FEM comparison (``eval/compare.py``) on synthetic ``.mat`` frames
+   of 37,811 probes (some on the r = 0.1 hole arc) written in a temporary
+   directory: the net-BC plate at full width (81 frames, one B4 launch per
+   frame) and wave_confined soft 3 -> 140 x 6 -> 7 (57 frames, one B1
+   each).  On frames that hold the eager float64 prediction of the same
+   weights every relative L2 of the kernel path stays below 1e-4; on
+   frames bumped by a known smooth field, ``compare_frames`` and
+   ``hole_edge_errors`` equal the eager float64 ones within 1e-5
+   relative.  Then ``python -m pinn_elastodynamics_torch.run --case
+   plate_hole --compare-fem --fem-root`` in a subprocess;
+17. the inverse problem (``cases/inverse.py``) at full width on frames of a
+   plane P-wave at the true E = 2.5, rho = 1: about 118,300 collocation
+   points and 20 x 200 acceleration sensors; one value+grad launches B1
+   and B2 at order 1 (collocation) and at order 2 (sensors, the 140-wide
+   net's new shape), held to eager float64 (loss 1e-5 relative, every
+   gradient, log_E and log_rho included, 2e-4 scaled) and bitwise over two
+   runs; B1 and B2 at that order-2 shape against their plain float64
+   versions and timed, and timed at the collocation's order-1 shape too;
+   value+grad timings with a profile; 10 device L-BFGS
+   iterations and 10 ``minimize_host`` iterations over
+   ``make_host_problem_vg``, with E and rho;
+18. adaptive sampling (``geometry/adaptive.py``) on wave_confined soft at
+   scale 1.0 (N = 146,149): residual norms against eager float64,
+   ``topk_refine`` (k = 4,096) and ``residual_resample`` from a 1,048,576
+   point pool in batches of 65,536, forward launches only (16 + 2 B1);
+19. ``geometry/native.py``: builds ``libpointgen`` from
+   ``native/pointgen.cpp`` on the card's host and holds it to the numpy
+   geometry at 1,048,576 points, both timed;
 
 and prints one JSON line describing the kernels, then, only if every phase
 passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -200,6 +228,33 @@ ELASTIC3D_CONFIGS = {"E1_elastic3d": ("build", "E1"),
                      "E2_elastic3d_mms": ("build_mms", "E2")}
 CLI_3D_ARGS = ("--case", "elastic3d", "--scale", "0.01", "--maxiter", "uv=4",
                "--segment", "2", "--log-every", "0")
+# Phase 16: synthetic FEM frames at the plate's probe grid size (SURVEY.md
+# §2 #20), some of them on the r = 0.1 hole arc.
+N_PROBES = 37_811
+N_RING = 200
+# The known smooth field added to the bumped frames, times each field's
+# RMS: the kernel path's f32 error moves a relative L2 by about its own
+# size over PERTURB, so PERTURB sets how close the two paths' errors are.
+PERTURB = 2.0
+TOL_FEM = 1e-4     # relative L2 of the kernel path on exact frames
+TOL_FEM_MATCH = 1e-5   # kernel path against eager f64, relative
+FEM_CLI_ARGS = ("--case", "plate_hole", "--scale", "0.02", "--maxiter",
+                "uv=5", "dist=5", "part=5", "--log-every", "0",
+                "--compare-fem")
+# Phase 17: the inverse problem; sensor frames of a plane P-wave, u =
+# A·sin(k(x - c_p·t)), at the true E = 2.5, rho = 1, nu = 0.25.
+INVERSE_ACCEL = 2.0
+PWAVE_AMP, PWAVE_K = 0.01, 0.5
+N_INVERSE_SENSORS = 20 * 200
+INVERSE_COLLOCATION = (118_000, 118_700)   # 120,000 LHS less the r = 2 disk
+INVERSE_ITERS = 10
+# Phase 18: adaptive sampling on wave_confined at scale 1.0.
+N_ADAPTIVE = 146_149
+ADAPTIVE_K = 4096
+N_POOL = 1_048_576
+POOL_BATCH = 65_536
+# Phase 19: native point generation.
+N_NATIVE = 1_048_576
 
 
 def log(msg: str) -> None:
@@ -1457,6 +1512,543 @@ def elastic3d_checks(torch, dev):
     return total
 
 
+def write_frame(fem_dir, i, xy, fields):
+    """One ``ProbeData-<i>.mat``: x, y (FEM coordinates) and the fields, as
+    column vectors."""
+    import os
+
+    import scipy.io
+
+    data = {"x": xy[:, :1], "y": xy[:, 1:]}
+    data.update({k: np.asarray(v)[:, None] for k, v in fields.items()})
+    scipy.io.savemat(os.path.join(fem_dir, f"ProbeData-{i}.mat"), data)
+
+
+def plate_probe_grid(rng):
+    """N_PROBES quarter-plate probe points outside the hole, N_RING of them
+    on the r = 0.1 hole arc."""
+    xy = plate_points(rng, N_PROBES - N_RING).astype(np.float64)
+    th = np.linspace(0.0, np.pi / 2, N_RING)
+    return np.concatenate([xy, 0.1 * np.stack([np.cos(th), np.sin(th)], 1)])
+
+
+def results_close(got, want, limit):
+    """The largest relative difference between two nested comparison
+    results (dicts and lists of floats); raises above ``limit``, naming
+    where."""
+    worst = (0.0, "")
+
+    def walk(g, w, path):
+        nonlocal worst
+        if isinstance(w, dict):
+            if sorted(g) != sorted(w):
+                raise AssertionError(f"keys {sorted(g)} != {sorted(w)}")
+            for k in w:
+                walk(g[k], w[k], f"{path}[{k!r}]")
+        elif isinstance(w, list):
+            for i, (a, b) in enumerate(zip(g, w, strict=True)):
+                walk(a, b, f"{path}[{i}]")
+        else:
+            worst = max(worst, (abs(g - w) / max(abs(w), 1e-300), path))
+
+    walk(got, want, "")
+    if not worst[0] <= limit:
+        raise AssertionError(f"comparison results differ by {worst[0]:.3e} "
+                             f"at {worst[1]}")
+    return worst[0]
+
+
+def all_errors(result):
+    """Every relative L2 in a comparison result."""
+    out = []
+    for d in result.get("per_frame", []) + result.get("per_time", []):
+        out += [v for k, v in d.items() if k != "t"]
+    for key in ("aggregate", "aggregate_mid"):
+        out += list(result.get(key, {}).values())
+    return out
+
+
+def fem_checks(torch, dev, net_p):
+    """Phase 16: the FEM comparison at full width on synthetic frames.
+    Returns the kernel launches of the counted comparisons."""
+    import os
+    import tempfile
+
+    from pinn_elastodynamics_torch.cases import plate_hole, wave_confined
+    from pinn_elastodynamics_torch.eval import compare, metrics
+    from pinn_elastodynamics_torch.eval.render import predict_fields
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+
+    rng = np.random.default_rng(SEED + 11)
+    wave = wave_confined.build(scale=0.02, device=dev)
+    # name -> (case, parameters, kernel, FEM probe coordinates)
+    configs = {
+        "plate_net_bc": (plate_hole.build(scale=0.02, device=dev), net_p,
+                         "fused_composite_jet", plate_probe_grid(rng)),
+        "wave_confined_soft": (
+            wave, params_from_jax(wave_params(rng, wave.model), device=dev),
+            "fused_mlp_jet", rng.uniform(0.0, 30.0, (N_PROBES, 2))),
+    }
+    total = None
+
+    def counted(fn, want):
+        fj.reset_launches()
+        fv.reset_launches()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        expected = dict.fromkeys(launches, 0)
+        expected.update(want)
+        if launches != expected:
+            raise AssertionError(f"launches {launches} != {expected}")
+        return out, wall, launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exact, perturbed = (os.path.join(tmp, k) for k in ("exact", "bumped"))
+        for name, (case, params, kernel, xy) in configs.items():
+            t0 = time.perf_counter()
+            eager = dataclasses.replace(case, model=eager_copy(case.model))
+            p64 = to64(params)
+            wave_keys = name.startswith("wave")   # amp and Mises in frames
+            pinn_xy = xy + np.asarray(case.fem_offset)
+            dirs = [compare.fem_path(case, root) for root in (exact, perturbed)]
+            for d in dirs:
+                os.makedirs(d)
+            n = case.n_frames
+            for i in range(n):
+                pred = predict_fields(eager.model, p64, pinn_xy,
+                                      case.frame_time(i), dtype=np.float64,
+                                      device=dev)
+                fields = {k: pred[k] for k in ("u", "v", "s11", "s22", "s12")}
+                if wave_keys:
+                    fields["amp"] = pred["amp"]
+                    fields["Mises"] = metrics.von_mises_2d(
+                        pred["s11"], pred["s22"], pred["s12"],
+                        mu=case.material.mu, plane=case.plane)
+                write_frame(dirs[0], i, xy, fields)
+                span = np.ptp(xy, axis=0)
+                bump = np.sin(2.0 * xy[:, 0] / span[0] + 3.0 * xy[:, 1]
+                              / span[1] + 0.3 * i)
+                write_frame(dirs[1], i, xy, {
+                    k: v + PERTURB * np.sqrt(np.mean(v * v)) * bump
+                    for k, v in fields.items()})
+            log(f"  {name}: {n} frames of {N_PROBES} probes written twice "
+                f"(eager f64 predictions, and the same with a smooth bump of "
+                f"{PERTURB} x RMS) in {time.perf_counter() - t0:.2f} s")
+
+            got, wall, launches = counted(
+                lambda: compare.compare_frames(case, params, dtype=np.float32,
+                                               fem_root=exact), {kernel: n})
+            total = add_launches(total, launches)
+            worst = max(all_errors(got))
+            log(f"  {name} compare_frames, exact frames: {n} frames, "
+                f"{1e3 * wall / n:.3f} ms per frame (host clock, loadmat "
+                f"included), largest relative L2 {worst:.3e} over "
+                f"{len(all_errors(got))} numbers, launches {launches}")
+            if not worst <= TOL_FEM:
+                raise AssertionError(f"{name}: kernel path error {worst:.3e}")
+            got, wall, launches = counted(
+                lambda: compare.compare_frames(case, params, dtype=np.float32,
+                                               fem_root=perturbed),
+                {kernel: n})
+            total = add_launches(total, launches)
+            ref = compare.compare_frames(eager, p64, dtype=np.float64,
+                                         fem_root=perturbed)
+            rel = results_close(got, ref, TOL_FEM_MATCH)
+            log(f"  {name} compare_frames, bumped frames: aggregate "
+                + ", ".join(f"{k} {v:.5f}" for k, v in got["aggregate"].items())
+                + f"; kernel path against eager f64 {rel:.3e} relative, "
+                f"{1e3 * wall / n:.3f} ms per frame")
+            xyt_ms = host_ms(torch, lambda: predict_fields(
+                case.model, params, pinn_xy, 2.5, device=dev))
+            log(f"  {name} predict_fields alone: {xyt_ms:.3f} ms per frame "
+                f"of {N_PROBES} points (host clock, median of 5)")
+            if name == "plate_net_bc":
+                edge, _, launches = counted(
+                    lambda: compare.hole_edge_errors(
+                        case, params, dtype=np.float32, fem_root=exact),
+                    {kernel: 3})
+                total = add_launches(total, launches)
+                edge_exact = max(all_errors(edge))
+                if not edge_exact <= TOL_FEM:
+                    raise AssertionError(f"hole edge, exact frames: {edge}")
+                edge, _, launches = counted(
+                    lambda: compare.hole_edge_errors(
+                        case, params, dtype=np.float32, fem_root=perturbed),
+                    {kernel: 3})
+                total = add_launches(total, launches)
+                ref = compare.hole_edge_errors(eager, p64, dtype=np.float64,
+                                               fem_root=perturbed)
+                rel = results_close(edge, ref, TOL_FEM_MATCH)
+                log(f"  hole_edge_errors ({N_RING} arc probes, t = 2.5, "
+                    f"3.75, 5.0): exact frames largest {edge_exact:.3e}; "
+                    f"bumped aggregate "
+                    + ", ".join(f"{k} {v:.5f}"
+                                for k, v in edge["aggregate"].items())
+                    + f", against eager f64 {rel:.3e} relative")
+            log(f"  {name}: {time.perf_counter() - t0:.2f} s")
+
+        out = os.path.join(tmp, "cli")
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pinn_elastodynamics_torch.run",
+             *FEM_CLI_ARGS, "--fem-root", exact, "--out", out],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"--compare-fem CLI exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(os.path.join(out, "fem_errors.json")) as f:
+            written = json.load(f)
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            events = {e["event"]: e for e in map(json.loads, f)}
+        agg = written["aggregate"]
+        log(f"  CLI {' '.join(FEM_CLI_ARGS)}: exit 0 in "
+            f"{time.perf_counter() - start:.2f} s, {len(written['frames'])} "
+            f"frames, aggregate " + ", ".join(f"{k} {v:.4g}"
+                                              for k, v in agg.items()))
+        if not ("cuda" in events["start"]["devices"][0]
+                and {"fem_errors", "fem_errors_mid"} <= set(events)
+                and len(written["frames"]) == 17
+                and sorted(agg) == ["s11", "s12", "s22", "u", "v"]
+                and np.all(np.isfinite(list(agg.values())))):
+            raise AssertionError(f"--compare-fem CLI: {events}, {agg}")
+    return total
+
+
+def plane_p_wave(x, t):
+    """u = A·sin(k(x - c_p·t)), v = 0: with lambda = G = 1 (E = 2.5, nu =
+    0.25) and rho = 1, c_p² = 3, s11 = 3Ak·cos, s22 = Ak·cos, s12 = 0."""
+    ph = PWAVE_K * (x - np.sqrt(3.0) * t)
+    c = PWAVE_AMP * PWAVE_K * np.cos(ph)
+    zero = np.zeros_like(x)
+    return {"u": PWAVE_AMP * np.sin(ph), "v": zero, "s11": 3.0 * c,
+            "s22": c, "s12": zero}
+
+
+def inverse_checks(torch, dev):
+    """Phase 17: the inverse problem at full width.  Returns the kernel
+    launches of the counted runs and the timings of B1 and B2 at the
+    acceleration sensors' shape (order 2) and the collocation's (order
+    1)."""
+    import os
+    import tempfile
+
+    from pinn_elastodynamics_torch.banks import PointBank
+    from pinn_elastodynamics_torch.cases import inverse, wave_confined
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.models.mlp import seed_jet
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+    from pinn_elastodynamics_torch.train.lbfgs_host import (
+        make_host_problem_vg,
+        minimize_host,
+    )
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    rng = np.random.default_rng(SEED + 12)
+    with tempfile.TemporaryDirectory() as tmp:
+        fem_dir = os.path.join(tmp, wave_confined.FEM_DIR)
+        os.makedirs(fem_dir)
+        xy = rng.uniform(0.0, 30.0, (N_PROBES, 2))
+        start = time.perf_counter()
+        for i in range(57):
+            write_frame(fem_dir, i, xy, plane_p_wave(xy[:, 0] - 15.0,
+                                                     i * 14.0 / 56))
+        problem, banks = inverse.build(scale=1.0, fem_dir=fem_dir,
+                                       accel_weight=INVERSE_ACCEL, device=dev)
+    sizes = {k: b.n_total for k, b in banks.items()}
+    log(f"  frames 0-56 of the plane wave at {N_PROBES} probes, build "
+        f"{time.perf_counter() - start:.2f} s: banks {sizes}, weights "
+        f"{dict(problem.weights)}")
+    lo, hi = INVERSE_COLLOCATION
+    if (sizes["sensors"] != N_INVERSE_SENSORS
+            or not lo < sizes["collocation"] < hi):
+        raise AssertionError(f"inverse banks {sizes}")
+    dims = list(problem.model.layers)
+    params = params_from_jax(
+        {"net": mlp_tree(rng, dims), "log_E": np.log(problem.E_init),
+         "log_rho": np.log(problem.rho_init)}, device=dev)
+    fn = problem.loss_fn(banks)
+    per_eval = {"fused_mlp_jet": 2, "fused_mlp_jet_bwd": 2}
+    loss, grads, launches, peak = counted_value_and_grad(
+        torch, "inverse value+grad (collocation order 1, sensors order 2)",
+        fn, params, per_eval)
+    total = dict(launches)
+
+    # Eager float64 on the card.
+    eager = dataclasses.replace(problem, model=eager_copy(problem.model))
+    banks64 = {k: PointBank(b.xyt.double(), b.mask.double(),
+                            {v: t.double() for v, t in b.values.items()})
+               for k, b in banks.items()}
+    loss64, grads64 = value_and_grad(eager.loss_fn(banks64), to64(params))
+    rel = scaled_loss_error("inverse value+grad", loss, loss64)
+    g_scaled, g_abs = check_grads("inverse value+grad", grads, grads64)
+    log(f"  inverse: loss {float(loss):.9g} (eager f64 {float(loss64):.9g}, "
+        f"rel {rel:.2e}), gradients {g_scaled:.3e} (max abs {g_abs:.3e}); "
+        f"d/dlog_E {float(grads['log_E']):.6g} (f64 "
+        f"{float(grads64['log_E']):.6g}), d/dlog_rho "
+        f"{float(grads['log_rho']):.6g} (f64 {float(grads64['log_rho']):.6g})"
+        f"; peak device memory {peak / 2**30:.2f} GiB")
+    del grads64, banks64
+    fj.reset_launches()
+    fv.reset_launches()
+    again = value_and_grad(fn, params)[1]
+    same = bitwise_equal(grads, again)
+    log(f"  inverse value+grad twice: gradients bitwise equal: {same}")
+    if not same:
+        raise AssertionError("inverse: two value+grads differ")
+    total = add_launches(total, {**fj.LAUNCHES, **fv.LAUNCHES})
+
+    # B1 and B2 at the acceleration sensors' shape (order 2, 140 wide),
+    # against their plain float64 versions and timed.
+    net, net64 = params["net"], to64(params["net"])
+    x = banks["sensors"].xyt
+    n = x.shape[0]
+    with torch.no_grad():
+        ker = fv.fused_jet_vjp(net, x, order=2)
+        b1_err = check_jet(f"B1 inverse widths 140 n={n} order=2", ker,
+                           fj.fused_jet_reference(net64, x.double(), order=2))
+    h0, d, dtt = (t.contiguous() for t in seed_jet(x, order=2))
+    cot = torch.as_tensor(rng.standard_normal((5, n, dims[-1])),
+                          dtype=torch.float32, device=dev)
+    first = fv.fused_mlp_jet_bwd(net, h0, d, dtt, cot, full_dx=False)
+    second = fv.fused_mlp_jet_bwd(net, h0, d, dtt, cot, full_dx=False)
+    ref_g, ref_dx = fv.mlp_jet_bwd_reference(net64, h0.double(), d.double(),
+                                             dtt.double(), cot.double())
+    b2_scaled, b2_abs = check_grads("B2 inverse order 2", first[0], ref_g)
+    dx_scaled, dx_abs = max_scaled(first[1], ref_dx[0])
+    same = bitwise_equal(first, second)
+    log(f"  B2 inverse widths 140 n={n} order=2: grads {b2_scaled:.3e}, dx "
+        f"{dx_scaled:.3e} (max abs {max(b2_abs, dx_abs):.3e}), two runs "
+        f"bitwise equal: {same}")
+    if not (same and dx_scaled <= TOL_GRAD):
+        raise AssertionError("B2 at the inverse's order-2 shape")
+    n_par = n_params(net)
+    with torch.no_grad():
+        fwd = time_kernel(
+            torch, "fused_mlp_jet",
+            lambda: fj.fused_jet_stack(net, x, order=2),
+            lambda: fj.fused_jet_reference(net, x, order=2),
+            flops_per_point(dims, 5) * n,
+            4 * (x.numel() + 5 * n * dims[-1] + n_par), f"inverse n={n} order=2")
+    bwd = time_kernel(
+        torch, "fused_mlp_jet_bwd",
+        lambda: fv.fused_mlp_jet_bwd(net, h0, d, dtt, cot, full_dx=False),
+        lambda: fv.mlp_jet_bwd_reference(net, h0, d, dtt, cot),
+        bwd_flops_per_point(dims, 5) * n,
+        4 * (h0.numel() + d.numel() + dtt.numel() + cot.numel()
+             + 2 * n_par + h0.numel()), f"inverse n={n} order=2", runs=10)
+    # And at the collocation's order-1 shape, which the profile below
+    # should show as well.
+    xc = banks["collocation"].xyt
+    nc = xc.shape[0]
+    ch0, cd, _ = (t if t is None else t.contiguous()
+                  for t in seed_jet(xc, order=1))
+    ccot = torch.as_tensor(rng.standard_normal((4, nc, dims[-1])),
+                           dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        fwd1 = time_kernel(
+            torch, "fused_mlp_jet",
+            lambda: fj.fused_jet_stack(net, xc, order=1),
+            lambda: fj.fused_jet_reference(net, xc, order=1),
+            flops_per_point(dims, 4) * nc,
+            4 * (xc.numel() + 4 * nc * dims[-1] + n_par),
+            f"inverse n={nc} order=1")
+    bwd1 = time_kernel(
+        torch, "fused_mlp_jet_bwd",
+        lambda: fv.fused_mlp_jet_bwd(net, ch0, cd, None, ccot, full_dx=False),
+        lambda: fv.mlp_jet_bwd_reference(net, ch0, cd, None, ccot),
+        bwd_flops_per_point(dims, 4) * nc,
+        4 * (ch0.numel() + cd.numel() + ccot.numel() + 2 * n_par
+             + ch0.numel()), f"inverse n={nc} order=1", runs=10)
+    del ch0, cd, ccot
+    timings = {
+        "fused_mlp_jet": {"inverse_order2": dict(fwd, max_abs_err=b1_err),
+                          "inverse_order1": fwd1},
+        "fused_mlp_jet_bwd": {
+            "inverse_order2": dict(bwd, max_abs_err=max(b2_abs, dx_abs)),
+            "inverse_order1": bwd1},
+    }
+
+    efn = eager.loss_fn(banks)
+    times = turns(torch, {"kernel": lambda: value_and_grad(fn, params),
+                          "eager": lambda: value_and_grad(efn, params)})
+    ker, eag = times["kernel"], times["eager"]
+    log(f"  value+grad inverse: kernel path {np.median(ker):.3f} ms "
+        f"[{min(ker):.3f}, {max(ker):.3f}], eager f32 {np.median(eag):.3f} "
+        f"ms [{min(eag):.3f}, {max(eag):.3f}] (CUDA events, median and "
+        f"range of 15, in three turns)")
+    profile_line(torch, "value+grad inverse",
+                 lambda: value_and_grad(fn, params))
+
+    launches, res = lbfgs_run(torch, "inverse device L-BFGS", fn, params,
+                              0.0, per_eval)
+    total = add_launches(total, launches)
+    log(f"  inverse device L-BFGS: E {float(torch.exp(res.params['log_E'])):.6g}"
+        f", rho {float(torch.exp(res.params['log_rho'])):.6g} (from "
+        f"{problem.E_init:g}, {problem.rho_init:g}; answer 2.5, 1)")
+
+    host_vg, x0, unravel = make_host_problem_vg(problem, banks, params)
+    f0, _ = host_vg(x0)
+    host_rel = scaled_loss_error("inverse host_vg", f0, loss64)
+    fj.reset_launches()
+    fv.reset_launches()
+    start = time.perf_counter()
+    hres = minimize_host(host_vg, x0, maxiter=INVERSE_ITERS, memory_size=50)
+    wall = time.perf_counter() - start
+    launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * hres.n_evals for k, v in per_eval.items()})
+    end = unravel(hres.x)
+    hist = hres.loss_history
+    log(f"  inverse minimize_host: x0 of {x0.size} (log_E, log_rho, net), "
+        f"host_vg loss {f0:.12g} (rel {host_rel:.2e} to eager f64); "
+        f"{hres.n_iters} iterations, {hres.n_evals} evaluations "
+        f"({hres.converged}), loss {hist[0]:.9g} -> {hist[-1]:.9g}; "
+        f"{hres.n_iters / wall:.3f} it/s, "
+        f"{(hres.n_evals - 1) / hres.n_iters:.2f} line-search evaluations "
+        f"per iteration; E {float(torch.exp(end['log_E'])):.6g}, rho "
+        f"{float(torch.exp(end['log_rho'])):.6g}; launches {launches}")
+    if (hres.n_iters != INVERSE_ITERS or launches != want
+            or not hist[-1] < hist[0]):
+        raise AssertionError(f"inverse minimize_host: {hres.n_iters} "
+                             f"iterations, launches {launches}")
+    total = add_launches(total, launches)
+    del problem, banks, params, res, hres
+    torch.cuda.empty_cache()
+    return total, timings
+
+
+def adaptive_checks(torch, dev):
+    """Phase 18: residual-driven resampling on wave_confined at scale 1.0
+    and full width.  Returns the kernel launches of the counted run."""
+    from pinn_elastodynamics_torch.cases import wave_confined
+    from pinn_elastodynamics_torch.geometry.adaptive import (
+        pointwise_residual_norm,
+        residual_resample,
+        topk_refine,
+    )
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+
+    rng = np.random.default_rng(SEED + 13)
+    case = wave_confined.build(scale=1.0, device=dev)
+    bank = case.banks["collocation"]
+    if bank.n_total != N_ADAPTIVE:
+        raise AssertionError(f"{bank.n_total} collocation points")
+    params = params_from_jax(wave_params(rng, case.model), device=dev)
+    lo, hi = (np.asarray(b) for b in CONFINED_BOX)
+    cands = (lo + (hi - lo) * rng.uniform(size=(N_ADAPTIVE, 3)))
+    pool = (lo + (hi - lo) * rng.uniform(size=(N_POOL, 3)))
+    args = (case.model, params, case.material, case.plane)
+
+    # The residual norms against eager float64 (launches not counted).
+    x = torch.as_tensor(cands.astype(np.float32), device=dev)
+    r = pointwise_residual_norm(*args, x)
+    r64 = pointwise_residual_norm(eager_copy(case.model), to64(params),
+                                  case.material, case.plane, x.double())
+    scaled, err = max_scaled(r, r64)
+    log(f"  residual norms at {N_ADAPTIVE} candidates: {scaled:.3e} scaled "
+        f"(max abs {err:.3e}, max {float(r64.max()):.4g}) against eager f64")
+    if not scaled <= TOL_FD:
+        raise AssertionError(f"residual norms differ by {scaled:.3e}")
+
+    fj.reset_launches()
+    fv.reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    new, info = topk_refine(*args, bank, cands, ADAPTIVE_K)
+    torch.cuda.synchronize()
+    refine_ms = 1e3 * (time.perf_counter() - start)
+    start = time.perf_counter()
+    drawn = residual_resample(*args, pool, N_ADAPTIVE, seed=SEED,
+                              batch=POOL_BATCH)
+    resample_ms = 1e3 * (time.perf_counter() - start)
+    launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+    want = dict.fromkeys(launches, 0)
+    want["fused_mlp_jet"] = N_POOL // POOL_BATCH + 2
+    log(f"  topk_refine k={ADAPTIVE_K} from {N_ADAPTIVE} candidates into "
+        f"{N_ADAPTIVE} points: {refine_ms:.3f} ms, {info}; "
+        f"residual_resample of {N_ADAPTIVE} from {N_POOL} in batches of "
+        f"{POOL_BATCH}: {resample_ms:.3f} ms (host clock); launches "
+        f"{launches}")
+    changed = int((new.xyt != bank.xyt).any(dim=1).sum())
+    if (launches != want or changed != ADAPTIVE_K
+            or drawn.shape != (N_ADAPTIVE, 3)
+            or not info["cand_residual_mean"] > float(r.mean())):
+        raise AssertionError(f"adaptive: launches {launches}, {changed} rows "
+                             f"changed, drawn {drawn.shape}, {info}")
+    del case, bank, new, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def native_checks():
+    """Phase 19: the port's native point generation, built on this host,
+    against its numpy geometry at N_NATIVE points."""
+    from pinn_elastodynamics_torch.geometry import distance, native
+    from pinn_elastodynamics_torch.geometry import sampling as smp
+
+    start = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"libpointgen: {native.load_error()}")
+    log(f"  libpointgen built and loaded in {time.perf_counter() - start:.2f} "
+        f"s ({native.library_path().name}, {native.num_threads()} OpenMP "
+        f"threads)")
+    rng = np.random.default_rng(SEED + 14)
+
+    def timed(label, fast, plain, same):
+        t0 = time.perf_counter()
+        a = fast()
+        t1 = time.perf_counter()
+        b = plain()
+        t2 = time.perf_counter()
+        if not same(a, b):
+            raise AssertionError(f"native {label} differs from numpy")
+        log(f"  {label}: native {t1 - t0:.4f} s, numpy {t2 - t1:.4f} s, "
+            f"equal")
+
+    pts = rng.uniform(-1.0, 1.0, (N_NATIVE, 3))
+    for strict in (True, False):
+        timed(f"exclude_disk strict={strict} n={N_NATIVE}",
+              lambda: native.exclude_disk(pts, xc=0.1, yc=-0.2, r=0.5,
+                                          strict=strict),
+              lambda: smp.exclude_disk(pts, xc=0.1, yc=-0.2, r=0.5,
+                                       strict=strict), np.array_equal)
+    xyt = rng.uniform(0.0, 0.5, (N_NATIVE, 3)) * np.array([1.0, 1.0, 20.0])
+    timed(f"plate_hole_distance n={N_NATIVE}",
+          lambda: native.plate_hole_distance(xyt),
+          lambda: distance.plate_hole_distance(xyt),
+          lambda a, b: np.allclose(a, b, rtol=0, atol=1e-15))
+    xy, t = rng.uniform(size=(N_NATIVE // 128, 2)), np.linspace(0, 10, 128)
+    timed(f"cross_time n={N_NATIVE}", lambda: native.cross_time(xy, t),
+          lambda: smp.cross_time(xy, t), np.array_equal)
+
+    t0 = time.perf_counter()
+    s = native.lhs(3, N_NATIVE, seed=42)
+    t1 = time.perf_counter()
+    smp.lhs(3, N_NATIVE, rng)
+    t2 = time.perf_counter()
+    strata = np.floor(s * N_NATIVE).astype(np.int64)
+    stratified = all(np.array_equal(np.sort(strata[:, j]),
+                                    np.arange(N_NATIVE)) for j in range(3))
+    box = native.lhs_box((-2.0, 0.0, 1.0), (3.0, 0.5, 11.0), N_NATIVE,
+                         seed=3)
+    inside = bool((box.min(0) >= (-2.0, 0.0, 1.0)).all()
+                  and (box.max(0) <= (3.0, 0.5, 11.0)).all())
+    log(f"  lhs 3 x {N_NATIVE}: native {t1 - t0:.4f} s, numpy {t2 - t1:.4f} "
+        f"s; one point per stratum in each dimension: {stratified}; "
+        f"lhs_box inside its box: {inside}")
+    if not (stratified and inside):
+        raise AssertionError("native LHS")
+
+
 def eager_copy(model):
     """The same model with every jet on the plain (eager) path."""
     if hasattr(model, "uv_model"):  # closed-form composite
@@ -1815,12 +2407,38 @@ def main() -> int:
     t0 = time.perf_counter()
     elastic3d_launches = elastic3d_checks(torch, dev)
     log(f"phase elastic3d: {time.perf_counter() - t0:.2f} s")
+
+    # 16. The FEM comparison on synthetic frames, and --compare-fem.
+    t0 = time.perf_counter()
+    fem_launches = fem_checks(torch, dev, net_p)
+    log(f"phase fem: {time.perf_counter() - t0:.2f} s")
+
+    # 17. The inverse problem at full width.
+    t0 = time.perf_counter()
+    inverse_launches, inverse_times = inverse_checks(torch, dev)
+    log(f"phase inverse: {time.perf_counter() - t0:.2f} s")
+
+    # 18. Residual-driven resampling.
+    t0 = time.perf_counter()
+    adaptive_launches = adaptive_checks(torch, dev)
+    log(f"phase adaptive: {time.perf_counter() - t0:.2f} s")
+
+    # 19. Native point generation.
+    t0 = time.perf_counter()
+    native_checks()
+    log(f"phase native: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         k["launches"] += sum(counts[k["name"]] for counts in (
             lbfgs_launches, pipe_launches, wave_launches,
             curriculum_launches, million_launches, endgame_launches,
-            elastic3d_launches))
+            elastic3d_launches, fem_launches, inverse_launches,
+            adaptive_launches))
+        if k["name"] in inverse_times:
+            k.update(inverse_times[k["name"]])
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   k["inverse_order2"]["max_abs_err"])
     log(f"total: {time.perf_counter() - t_all:.2f} s")
+    log(card_line(torch))   # again, beside the numbers at the end
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,21 +8,25 @@ of the reference's four hand-edited ``__main__`` blocks.
 
 It runs the case's full phase pipeline (dist → part → uv where
 applicable), streams JSONL metrics, and checkpoints each phase atomically
-(native format + reference-compatible pickles).  It runs on ``--device``,
-``cuda`` unless the CPU is asked for.  The CUDA kernels compute in float32,
-so ``--x64`` on a CUDA device builds the case with the plain (eager) jets.
-The FEM comparison and the plots are not ported yet: ``--compare-fem`` and
-``--plots`` stop with an error before training.
+(native format + reference-compatible pickles), and optionally scores the
+trained fields against the FEM frames (``--compare-fem``) and renders
+comparison figures (``--plots``, which needs matplotlib).  The case's FEM
+directory is read under ``--fem-root``, the root of the reference project.
+It runs on ``--device``, ``cuda`` unless the CPU is asked for.  The CUDA
+kernels compute in float32, so ``--x64`` on a CUDA device builds the case
+with the plain (eager) jets.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import json
 import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 CASES = {
@@ -31,13 +35,6 @@ CASES = {
     "wave_infinite": "pinn_elastodynamics_torch.cases.wave_infinite",
     "wave_semi_infinite": "pinn_elastodynamics_torch.cases.wave_semi_infinite",
     "elastic3d": "pinn_elastodynamics_torch.cases.elastic3d",
-}
-NOT_PORTED = {
-    "compare_fem": "--compare-fem needs the FEM comparison (eval/metrics.py, "
-                   "eval/compare.py, eval/fem.py), not ported yet: ROADMAP "
-                   "Queue A item 6",
-    "plots": "--plots needs eval/plots.py and the FEM comparison, not "
-             "ported yet: ROADMAP Queue A items 9 and 6",
 }
 
 
@@ -89,16 +86,23 @@ def main(argv=None):
     ap.add_argument("--compare-fem", action="store_true")
     ap.add_argument("--plots", type=int, default=0,
                     help="render N comparison frames")
+    ap.add_argument("--fem-root", default=".",
+                    help="root of the reference project, under which the "
+                         "case's FEM frames lie (default: the current "
+                         "directory)")
     args = ap.parse_args(argv)
 
-    for flag, on in (("compare_fem", args.compare_fem),
-                     ("plots", args.plots)):
-        if on:
-            print(f"error: {NOT_PORTED[flag]}", file=sys.stderr)
+    if args.plots:
+        try:
+            from .eval import plots   # imports matplotlib
+        except ModuleNotFoundError as e:
+            print(f"error: --plots needs the {e.name!r} package, which is "
+                  "not installed", file=sys.stderr)
             return 2
 
     from .cases.base import run_pipeline
     from .device import resolve_device
+    from .eval import compare, fem
     from .train import checkpoint as ckpt
     from .utils.logging import MetricLogger
 
@@ -119,6 +123,12 @@ def main(argv=None):
     if args.bc is not None:
         build_kwargs["bc"] = args.bc
     case = mod.build(**build_kwargs)
+    if (args.compare_fem or args.plots) and case.fem_dir:
+        fem_dir = compare.fem_path(case, args.fem_root)
+        if fem.frame_count(fem_dir) == 0:
+            print(f"error: no FEM frames (ProbeData-0.mat) in {fem_dir}; "
+                  "pass --fem-root", file=sys.stderr)
+            return 2
 
     os.makedirs(args.out, exist_ok=True)
     logger = MetricLogger(os.path.join(args.out, "metrics.jsonl"), echo=True)
@@ -173,6 +183,25 @@ def main(argv=None):
         ckpt.save_reference_pickle(
             os.path.join(args.out, f"{case.name}_uv.pickle"), uv
         )
+
+    if args.compare_fem and case.fem_dir:
+        frames = list(range(0, case.n_frames, max(1, case.n_frames // 16)))
+        cmp = compare.compare_frames(
+            case, params, frames, fem_root=args.fem_root,
+            dtype=np.float64 if args.x64 else np.float32)
+        logger.log({"event": "fem_errors", **cmp["aggregate"]})
+        logger.log({"event": "fem_errors_mid", **cmp["aggregate_mid"]})
+        with open(os.path.join(args.out, "fem_errors.json"), "w") as f:
+            json.dump(cmp, f, indent=2, default=float)
+
+    if args.plots and case.fem_dir:
+        frames = list(
+            range(0, case.n_frames, max(1, case.n_frames // args.plots))
+        )[: args.plots]
+        paths = plots.frame_sequence(case, params,
+                                     os.path.join(args.out, "plots"), frames,
+                                     fem_root=args.fem_root)
+        logger.log({"event": "plots", "n": len(paths)})
 
     logger.close()
     return 0

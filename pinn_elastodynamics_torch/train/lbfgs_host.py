@@ -18,9 +18,10 @@ gradient itself carries f32 noise.
 :func:`minimize_host`, :func:`make_preconditioned_vg` and
 :func:`_two_loop` are numpy and a faithful copy of the JAX package's: the
 same operations in the same order, so that the histories are bitwise its
-histories.  ``make_host_problem_vg`` (the inverse problem's) is not ported.
-Device L-BFGS (train/lbfgs.py) remains the production path away from the
-precision floor; this engine takes over for the endgame.
+histories.  :func:`make_host_phase_vg` (a case phase) and
+:func:`make_host_problem_vg` (the inverse problem's joint tree) build the
+device half.  Device L-BFGS (train/lbfgs.py) remains the production path
+away from the precision floor; this engine takes over for the endgame.
 """
 
 from __future__ import annotations
@@ -62,15 +63,6 @@ def make_host_phase_vg(case, phase, params, *, chunk_size: int = 512):
     ``host_vg`` joins with the one ``.cpu()`` copy.
     """
     spec = phase.loss
-    too_big = {k: b.n_total for k, b in case.banks.items()
-               if b.n_total >= MAX_EXACT_COUNT}
-    if too_big:
-        raise ValueError(f"banks {too_big} hold 2**24 points or more; their "
-                         "counts would not travel exactly as float32")
-
-    def to32(tree):
-        return tree_map(lambda t: t.detach().to(torch.float32), tree)
-
     key = phase.trainable
     if key is None:
         frozen = None
@@ -79,8 +71,57 @@ def make_host_phase_vg(case, phase, params, *, chunk_size: int = 512):
         # Frozen sub-nets live on the device in f32 (the compute dtype).
         # ``key`` may be a dotted path ("uv.mlp"): the whole tree is frozen
         # in f32 and the trainable subtree spliced in at evaluation.
-        frozen = to32(params)
+        frozen = _to32(params)
         sub0 = path_get(params, key)
+
+    def total(sub32, coll):
+        p = path_set(frozen, key, sub32) if key is not None else sub32
+        loss, _comps = spec.evaluate(case.model, p, case.material,
+                                     case.banks, collector=coll)
+        return phase.scale * loss
+
+    return _make_host_vg(total, sub0, case.banks, spec.weight_map(),
+                         float(phase.scale), chunk_size)
+
+
+def make_host_problem_vg(problem, banks, params, *, chunk_size: int = 512):
+    """Device value+grad for :func:`minimize_host` over a joint problem.
+
+    The scheme of :func:`make_host_phase_vg` for problem objects exposing
+    ``loss_and_aux(params, banks, collector=)`` and a ``weights`` tuple —
+    the inverse problem (cases/inverse.py), where every leaf (the net and
+    the log-material parameters) is trainable.  The f32 polish of that
+    problem resolution-floors at a loss of about 4e-3 with rho biased 4.6%
+    (JAX package, runs/inverse/recovery.json); the f64 host loss restores
+    the line search's ability to certify the small joint-valley decreases.
+
+    Returns (host_vg, x0_flat64, unravel32), as :func:`make_host_phase_vg`
+    does; ``x0_flat64`` follows ``ravel_pytree``'s sorted keys: ``log_E``,
+    ``log_rho``, then ``net``.
+    """
+
+    def total(p32, coll):
+        loss, _comps = problem.loss_and_aux(p32, banks, collector=coll)
+        return loss
+
+    return _make_host_vg(total, params, banks, dict(problem.weights), 1.0,
+                         chunk_size)
+
+
+def _to32(tree):
+    return tree_map(lambda t: t.detach().to(torch.float32), tree)
+
+
+def _make_host_vg(total, sub0, banks, wmap, scale: float, chunk_size: int):
+    """The host value+grad over ``total(sub32, collector)``, a loss of the
+    f32 tree shaped like ``sub0`` that feeds every masked square-and-mean
+    to the collector; ``wmap`` and ``scale`` rebuild that loss in float64
+    from the collector's chunk sums."""
+    too_big = {k: b.n_total for k, b in banks.items()
+               if b.n_total >= MAX_EXACT_COUNT}
+    if too_big:
+        raise ValueError(f"banks {too_big} hold 2**24 points or more; their "
+                         "counts would not travel exactly as float32")
     # Seed x0 from the parameters' own dtype (f64 checkpoints keep their
     # full precision on the host side), but build the unravel over f32.
     leaves0 = tree_leaves(sub0)
@@ -101,20 +142,14 @@ def make_host_phase_vg(case, phase, params, *, chunk_size: int = 512):
     def device_vg(z32: torch.Tensor) -> torch.Tensor:
         """[grad; chunk sums of every entry; counts], f32 on the device."""
         z = z32.detach().requires_grad_()
-        sub32 = unravel32(z)
-        p = path_set(frozen, key, sub32) if key is not None else sub32
         coll = ChunkSumCollector(chunk_size)
-        total, _comps = spec.evaluate(case.model, p, case.material,
-                                      case.banks, collector=coll)
-        (g,) = torch.autograd.grad(phase.scale * total, z)
+        (g,) = torch.autograd.grad(total(unravel32(z), coll), z)
         names[:] = coll.names
         n_chunks[:] = [a.numel() for a in coll.arrays]
         return torch.cat([g, *(a.detach().to(torch.float32)
                                for a in coll.arrays),
                           torch.stack(coll.counts).detach().to(torch.float32)])
 
-    wmap = spec.weight_map()
-    scale = float(phase.scale)
     n = x0_flat.size
 
     def host_sums(packed: np.ndarray):
@@ -130,8 +165,8 @@ def make_host_phase_vg(case, phase, params, *, chunk_size: int = 512):
             comp[name] = comp.get(name, 0.0) + (
                 float(np.asarray(s_arr, np.float64).sum()) / float(c)
             )
-        total = scale * sum(wmap.get(k, 0.0) * v for k, v in comp.items())
-        return total, np.asarray(g, np.float64)
+        loss = scale * sum(wmap.get(k, 0.0) * v for k, v in comp.items())
+        return loss, np.asarray(g, np.float64)
 
     def host_vg(z64: np.ndarray):
         z32 = torch.as_tensor(np.asarray(z64, np.float32), device=device)

@@ -7,7 +7,7 @@ dicts, nested in dicts for composites); these helpers take the place of
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Tuple
 
 
 def tree_leaves(tree) -> List:
@@ -29,3 +29,15 @@ def tree_map(fn: Callable, tree, *rest):
         return [tree_map(fn, t, *(r[i] for r in rest))
                 for i, t in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_leaves_with_path(tree, path: str = "") -> List[Tuple[str, object]]:
+    """(path, leaf) pairs in the order of :func:`tree_leaves`; a path reads
+    as ``jax.tree_util.keystr`` writes it (``['uv'][0]['W']``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_leaves_with_path(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in tree_leaves_with_path(t, f"{path}[{i}]")]
+    return [(path, tree)]

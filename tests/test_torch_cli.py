@@ -113,19 +113,33 @@ def test_cli_maxiter_parse_errors(tmp_path, bad):
                   "--maxiter", bad])
 
 
-@pytest.mark.parametrize("flag, item", [(["--compare-fem"], "item 6"),
-                                        (["--plots", "4"], "items 9 and 6")])
-def test_cli_flags_not_ported_exit_nonzero(tmp_path, capsys, flag, item):
+@pytest.mark.parametrize("flag, message", [
+    (["--compare-fem"], "no FEM frames (ProbeData-0.mat) in "),
+    (["--plots", "4"], "--plots needs the 'matplotlib' package")])
+def test_cli_flags_not_ported_exit_nonzero(tmp_path, capsys, monkeypatch,
+                                           flag, message):
+    """``--compare-fem`` and ``--plots`` exit 2 before training when they
+    cannot run: no FEM frames under ``--fem-root``, or (``--plots``) no
+    matplotlib."""
+    import sys
+
+    from pinn_elastodynamics_torch import eval as eval_pkg
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.delitem(sys.modules, "pinn_elastodynamics_torch.eval.plots",
+                        raising=False)
+    monkeypatch.delattr(eval_pkg, "plots", raising=False)
     out = str(tmp_path / "out")
     rc = cli.main(["--case", "wave_confined", "--scale", "0.002",
-                   "--device", "cpu", "--out", out] + flag)
-    assert rc != 0
-    assert f"ROADMAP Queue A {item}" in capsys.readouterr().err
+                   "--device", "cpu", "--out", out,
+                   "--fem-root", str(tmp_path)] + flag)
+    assert rc == 2
+    assert message in capsys.readouterr().err
     assert not os.path.exists(out)
 
 
 def test_cli_rejects_cases_not_ported(capsys):
-    """The inverse case is not ported (nor a ``--case`` of the JAX CLI)."""
+    """The inverse case is no ``--case`` of the CLI, as in JAX."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["--case", "inverse", "--device", "cpu"])
     assert exc.value.code == 2

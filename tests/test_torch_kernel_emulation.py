@@ -198,7 +198,8 @@ def test_emulated_mlp_backward_matches_plain(lib, a, order):
 
 # (a, order, widths, n, full_dx, max_blocks): the plate nets of B2 and B3b,
 # the wave-confined Fourier net (a 16-point tile with one weight buffer),
-# the order-1 wave nets 80 x 8 and 100 x 8 of B2, a 3D order-2 net, the
+# the order-1 wave nets 80 x 8 and 100 x 8 of B2, the inverse problem's
+# 140-wide net at order 2 (its acceleration sensors), a 3D order-2 net, the
 # two 3D nets of cases/elastic3d.py (order 1, twelve outputs), and nets of
 # 1, 2 and 4 layers (every rotation of the row buffers); ragged n, several
 # tiles per block and several blocks.
@@ -208,6 +209,7 @@ WIDE_CASES = {
     "b3b_wave_confined": (3, 1, [128] + [140] * 6 + [7], 37, True, 3),
     "b2_wave_infinite": (3, 1, [3] + [80] * 8 + [7], 53, False, 2),
     "b2_wave_semi_infinite": (3, 1, [3] + [100] * 8 + [7], 41, False, 2),
+    "b2_inverse_order2": (3, 2, [3] + [140] * 6 + [7], 37, False, 3),
     "b2_3d": (4, 2, [4] + [100] * 6 + [3], 20, False, 1),
     "b2_elastic3d": (4, 1, [4] + [100] * 6 + [12], 37, False, 2),
     "b2_elastic3d_mms": (4, 1, [4] + [64] * 5 + [12], 45, False, 2),
@@ -249,8 +251,9 @@ def test_emulated_backward_workspace_size(lib):
     """The per-block workspace holds every hidden layer's output, all S
     streams, in rows of S * T + 4 floats: T = 32 at the plate widths, the
     80- and 100-wide wave nets and the 64-wide 3D MMS net, 16 for the
-    140-wide wave-confined net and the 100-wide 3D net (five streams);
-    -1 for a net no tile fits."""
+    140-wide nets (the wave-confined one, and the inverse problem's at
+    order 2) and the 100-wide 3D net (five streams); -1 for a net no tile
+    fits."""
     def query(a, order, dims):
         return lib.fused_mlp_jet_bwd_workspace(a, order, _int_array(dims),
                                                len(dims) - 1)
@@ -258,6 +261,7 @@ def test_emulated_backward_workspace_size(lib):
     assert query(3, 2, [128] + [70] * 8 + [5]) == 8 * 70 * (5 * 32 + 4)
     assert query(3, 2, [3] + [70] * 8 + [5]) == 8 * 70 * (5 * 32 + 4)
     assert query(3, 1, [128] + [140] * 6 + [7]) == 6 * 140 * (4 * 16 + 4)
+    assert query(3, 2, [3] + [140] * 6 + [7]) == 6 * 140 * (5 * 16 + 4)
     assert query(3, 1, [3] + [80] * 8 + [7]) == 8 * 80 * (4 * 32 + 4)
     assert query(3, 1, [3] + [100] * 8 + [7]) == 8 * 100 * (4 * 32 + 4)
     assert query(4, 1, [4] + [100] * 6 + [12]) == 6 * 100 * (5 * 16 + 4)
@@ -488,6 +492,7 @@ FORWARD_MLP_CASES = {
     "b1_raw_elastic3d_mms": ("raw", 4, 1, [4] + [64] * 5 + [12], 90),
     "b1_raw_wave_infinite": ("raw", 3, 1, [3] + [80] * 8 + [7], 130),
     "b1_raw_wave_semi_infinite": ("raw", 3, 1, [3] + [100] * 8 + [7], 75),
+    "b1_raw_inverse_order2": ("raw", 3, 2, [3] + [140] * 6 + [7], 45),
     "b1_one_layer": ("raw", 3, 1, [3, 5], 70),
     "b1_two_layers": ("seeded", 4, 1, [12, 7, 5], 140),
     "b1_four_layers": ("seeded", 4, 2, [9, 11, 6, 8, 4], 66),
