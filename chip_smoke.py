@@ -125,6 +125,18 @@ use only), then, in order:
 19. ``geometry/native.py``: builds ``libpointgen`` from
    ``native/pointgen.cpp`` on the card's host and holds it to the numpy
    geometry at 1,048,576 points, both timed;
+20. data parallelism over the points axis (``parallel/mesh.py``): the
+   net-BC plate at scale 1.0 sharded over an NCCL world of one in this
+   process (loss within 1e-6 relative and gradients within 2e-4 scaled of
+   the mesh-less value+grad, bitwise or not printed; one B4 and one B5
+   launch and one reduction of the sums and one of the gradients; both
+   timed in turns), then a gloo world of two spawned ranks sharing the
+   card, the banks padded to two: the net-BC plate (B4, B5; the
+   value+grad, then 3 L-BFGS iterations), analytic + Fourier64 on
+   ``uv.mlp`` (B1, B3b) and W1 in 2 microbatches of each rank's shard (B1,
+   B2), each rank on half the rows, each value+grad against the mesh-less
+   one of the same weights, the ranks' losses, gradients and L-BFGS
+   parameters bitwise equal, with the same number of evaluations;
 
 and prints one JSON line describing the kernels, then, only if every phase
 passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -255,6 +267,31 @@ N_POOL = 1_048_576
 POOL_BATCH = 65_536
 # Phase 19: native point generation.
 N_NATIVE = 1_048_576
+# Phase 20: data parallelism over the points axis.
+MESH_SCALE = 1.0
+MESH_BACKEND_1 = "nccl"   # the world of one in this process
+MESH_WORLD = 2            # the spawned gloo world, every rank on cuda:0
+MESH_DEVICE = "cuda:0"
+MESH_TIMEOUT_S = 60       # every process group's limit on a collective
+MESH_JOIN_S = 240         # the spawned world's limit
+MESH_LBFGS_ITERS = 3
+MESH_MICROBATCHES = 2
+N_MESH_HALF = 51_856      # collocation rows per rank: 103,711 padded to 2
+TOL_MESH = 1e-6           # relative, world-1 loss against the mesh-less one
+# name -> (case module, build kwargs, trainable path of the main phase or
+#          None with microbatches, microbatches, launches per value+grad)
+MESH_CONFIGS = {
+    "net_bc": ("plate_hole", {}, "uv", 0,
+               {"fused_composite_jet": 1, "fused_composite_jet_bwd": 1}),
+    "analytic_fourier64": (
+        "plate_hole", dict(bc="analytic", fourier=FOURIER,
+                           fourier_scale=FOURIER_SCALE), "uv.mlp", 0,
+        {"fused_mlp_jet": 1, "fused_seed_jet_bwd": 1}),
+    "W1_microbatched": (
+        "wave_confined", {}, None, MESH_MICROBATCHES,
+        {"fused_mlp_jet": 2 * MESH_MICROBATCHES,
+         "fused_mlp_jet_bwd": MESH_MICROBATCHES}),
+}
 
 
 def log(msg: str) -> None:
@@ -2049,6 +2086,322 @@ def native_checks():
         raise AssertionError("native LHS")
 
 
+def mesh_case(dev, name, pad, scale):
+    """A phase-20 configuration's case, its banks padded to ``pad``."""
+    import importlib
+
+    mod_name, kw = MESH_CONFIGS[name][:2]
+    mod = importlib.import_module(f"pinn_elastodynamics_torch.cases.{mod_name}")
+    return mod.build(scale=scale, pad_to_multiple_of=pad, device=dev, **kw)
+
+
+def mesh_pad(name, size):
+    """Banks padded to the world size, times the microbatches."""
+    return size * max(1, MESH_CONFIGS[name][3])
+
+
+def mesh_loss(case, name, params):
+    """(fn, sub) of a phase-20 configuration: the main phase's loss over its
+    trainable subtree, or the microbatched loss over every parameter."""
+    from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
+    from pinn_elastodynamics_torch.train.step import make_microbatched_loss_fn
+
+    trainable, micro = MESH_CONFIGS[name][2:4]
+    if micro:
+        loss = make_microbatched_loss_fn(case.model, case.loss, case.material,
+                                         num_microbatches=micro)
+        return (lambda p: loss(p, case.banks)[0]), params
+    phase = dataclasses.replace(case.phases[-1], trainable=trainable)
+    fn, sub, _ = _phase_loss_fn(case, phase, params)
+    return fn, sub
+
+
+def mesh_trees(rng):
+    """Full-width random parameters (JAX layout, numpy f32) of each
+    phase-20 configuration."""
+    from pinn_elastodynamics_torch.cases import plate_hole, wave_confined
+
+    small = [3] + [20] * 4 + [5]
+    return {
+        "net_bc": {"uv": mlp_tree(rng, [3] + [70] * 8 + [5]),
+                   "dist": mlp_tree(rng, small), "part": mlp_tree(rng, small)},
+        "analytic_fourier64": wave_params(rng, plate_hole.build_model(
+            **MESH_CONFIGS["analytic_fourier64"][1])),
+        "W1_microbatched": wave_params(rng, wave_confined.build_model()),
+    }
+
+
+def counted_mesh_vg(torch, fn, sub, sync):
+    """One value+grad after a warm-up, with the kernel launches and the
+    reductions it made: (loss, grads, launches, collectives)."""
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.parallel import mesh as pmesh
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    value_and_grad(fn, sub)   # warm-up
+    sync()
+    fj.reset_launches()
+    fv.reset_launches()
+    pmesh.reset_collectives()
+    loss, grads = value_and_grad(fn, sub)
+    sync()
+    return (loss, grads, {**fj.LAUNCHES, **fv.LAUNCHES},
+            dict(pmesh.COLLECTIVES))
+
+
+def flat_numpy(tree):
+    from pinn_elastodynamics_torch.utils.tree import tree_leaves
+
+    return np.concatenate([t.detach().reshape(-1).cpu().numpy()
+                           for t in tree_leaves(tree)])
+
+
+def mesh_rank(rank, root):
+    """One rank of phase 20's gloo world (spawned): each configuration's
+    value+grad on its shard, host-clock times, and net-BC's L-BFGS
+    iterations; the results go to ``root/rank<rank>.pkl``."""
+    import datetime
+    import os
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.parallel import mesh as pmesh
+    from pinn_elastodynamics_torch.train import lbfgs
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(root, "setup.pkl"), "rb") as f:
+        setup = pickle.load(f)
+    dev = torch.device(setup["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(root, "store"), MESH_WORLD),
+        rank=rank, world_size=MESH_WORLD,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    out = {}
+    try:
+        mesh = pmesh.make_mesh(device=dev)
+        for name in MESH_CONFIGS:
+            case = mesh_case(dev, name, mesh_pad(name, MESH_WORLD),
+                             setup["scale"])
+            case = dataclasses.replace(
+                case, banks=pmesh.shard_banks(case.banks, mesh))
+            params = pmesh.replicate(
+                params_from_jax(setup["trees"][name], device=dev), mesh)
+            fn, sub = mesh_loss(case, name, params)
+            loss, grads, launches, coll = counted_mesh_vg(torch, fn, sub,
+                                                          sync)
+            times = []
+            for _ in range(5):
+                start = time.perf_counter()
+                value_and_grad(fn, sub)
+                sync()
+                times.append(1e3 * (time.perf_counter() - start))
+            res = dict(loss=float(loss), grads=flat_numpy(grads),
+                       launches=launches, collectives=coll, ms=times,
+                       rows=case.banks["collocation"].n_total)
+            if name == "net_bc":
+                evals = []
+
+                def counted(p):
+                    evals.append(1)
+                    return fn(p)
+
+                fj.reset_launches()
+                fv.reset_launches()
+                pmesh.reset_collectives()
+                start = time.perf_counter()
+                run = lbfgs.minimize(counted, sub, maxiter=MESH_LBFGS_ITERS,
+                                     segment=MESH_LBFGS_ITERS)
+                sync()
+                res["lbfgs"] = dict(
+                    wall_ms=1e3 * (time.perf_counter() - start),
+                    loss=float(run.final_loss), iters=run.n_iters,
+                    evals=len(evals), params=flat_numpy(run.params),
+                    launches={**fj.LAUNCHES, **fv.LAUNCHES},
+                    collectives=dict(pmesh.COLLECTIVES))
+            out[name] = res
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_checks(torch, dev):
+    """Phase 20: data parallelism over the points axis.  (a) The net-BC
+    plate sharded over a world of one in this process against the mesh-less
+    value+grad, with its launches, reductions and times; (b) a gloo world
+    of MESH_WORLD spawned ranks on one card against the mesh-less
+    value+grads of the same weights.  Returns the kernel launches of the
+    counted runs."""
+    import datetime
+    import multiprocessing
+    import os
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pinn_elastodynamics_torch.parallel import mesh as pmesh
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    from pinn_elastodynamics_torch.utils.tree import tree_leaves
+
+    sync = torch.cuda.synchronize
+    trees = mesh_trees(np.random.default_rng(SEED + 20))
+
+    # (a) A world of one in this process.
+    dist.init_process_group(MESH_BACKEND_1, store=dist.HashStore(), rank=0,
+                            world_size=1, timeout=datetime.timedelta(
+                                seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = pmesh.make_mesh(device=dev)
+        case = mesh_case(dev, "net_bc", 1, MESH_SCALE)
+        params = params_from_jax(trees["net_bc"], device=dev)
+        fn, sub = mesh_loss(case, "net_bc", params)
+        sharded = dataclasses.replace(
+            case, banks=pmesh.shard_banks(case.banks, mesh))
+        sfn, ssub = mesh_loss(sharded, "net_bc", pmesh.replicate(params, mesh))
+        loss, grads, launches, coll = counted_mesh_vg(torch, sfn, ssub, sync)
+        ref, ref_grads = value_and_grad(fn, sub)
+        rel = abs(float(loss) - float(ref)) / abs(float(ref))
+        g_scaled, g_abs = check_grads("world of one", grads, ref_grads)
+        log(f"  {MESH_BACKEND_1} world of 1, net-BC uv phase at scale "
+            f"{MESH_SCALE}: loss {float(loss):.9g} (mesh-less "
+            f"{float(ref):.9g}, rel {rel:.2e}), gradients {g_scaled:.3e} "
+            f"(max abs {g_abs:.3e}), bitwise "
+            f"{bool(torch.equal(loss, ref)) and bitwise_equal(grads, ref_grads)}"
+            f"; launches {launches}, collectives {coll}")
+        expected = dict.fromkeys(launches, 0)
+        expected.update(MESH_CONFIGS["net_bc"][4])
+        if launches != expected or coll != {"sums": 1, "grads": 1}:
+            raise AssertionError(f"world of one: launches {launches}, "
+                                 f"collectives {coll}")
+        if not rel <= TOL_MESH:
+            raise AssertionError(f"world of one: loss differs by {rel:.2e}")
+        total = dict(launches)
+        times = turns(torch, {"mesh-less": lambda: value_and_grad(fn, sub),
+                              "world 1": lambda: value_and_grad(sfn, ssub)})
+        a, b = times["mesh-less"], times["world 1"]
+        log(f"  value+grad net-BC: mesh-less {np.median(a):.3f} ms "
+            f"[{min(a):.3f}, {max(a):.3f}], {MESH_BACKEND_1} world of 1 "
+            f"{np.median(b):.3f} ms [{min(b):.3f}, {max(b):.3f}] (CUDA "
+            f"events, median and range of 15, in three turns; "
+            f"{card_line(torch)})")
+        del case, sharded, grads, ref_grads
+    finally:
+        dist.destroy_process_group()
+
+    # (b) A gloo world of MESH_WORLD spawned ranks, all on one card.
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as root:
+        with open(os.path.join(root, "setup.pkl"), "wb") as f:
+            pickle.dump(dict(device=MESH_DEVICE, scale=MESH_SCALE,
+                             trees=trees), f)
+        start = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank, args=(r, root))
+                 for r in range(MESH_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            refs = {}
+            for name in MESH_CONFIGS:   # the world of one, meanwhile
+                case = mesh_case(dev, name, mesh_pad(name, MESH_WORLD),
+                                 MESH_SCALE)
+                fn, sub = mesh_loss(
+                    case, name, params_from_jax(trees[name], device=dev))
+                refs[name] = (value_and_grad(fn, sub),
+                              case.banks["collocation"].n_total)
+                del case
+            for p in procs:
+                p.join(max(1.0, MESH_JOIN_S - (time.perf_counter() - start)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        wall = time.perf_counter() - start
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * MESH_WORLD:
+            raise AssertionError(f"gloo world: rank exit codes {codes}")
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    log(f"  gloo world of {MESH_WORLD} on {MESH_DEVICE}: {wall:.2f} s from "
+        f"spawn to exit")
+    for name, (_, _, _, _, per_eval) in MESH_CONFIGS.items():
+        (ref, ref_grads), n_rows = refs[name]
+        first = ranks[0][name]
+        for r, rank in enumerate(ranks):
+            res = rank[name]
+            expected = dict.fromkeys(res["launches"], 0)
+            expected.update(per_eval)
+            if (res["launches"] != expected
+                    or res["collectives"] != {"sums": 1, "grads": 1}):
+                raise AssertionError(f"{name} rank {r}: launches "
+                                     f"{res['launches']}, collectives "
+                                     f"{res['collectives']}")
+            if res["rows"] * MESH_WORLD != n_rows:
+                raise AssertionError(f"{name} rank {r}: {res['rows']} of "
+                                     f"{n_rows} collocation rows")
+            if (res["loss"] != first["loss"]
+                    or not np.array_equal(res["grads"], first["grads"])):
+                raise AssertionError(f"{name}: ranks 0 and {r} differ")
+            total = add_launches(total, res["launches"])
+        if name == "net_bc" and first["rows"] != N_MESH_HALF:
+            raise AssertionError(f"net_bc: {first['rows']} rows per rank")
+        rel = abs(first["loss"] - float(ref)) / abs(float(ref))
+        ref_leaves = tree_leaves(ref_grads)
+        got = torch.split(torch.as_tensor(first["grads"], device=dev),
+                          [t.numel() for t in ref_leaves])
+        g_scaled, g_abs = check_grads(
+            f"{name} gloo world", [g.view(t.shape) for g, t in
+                                   zip(got, ref_leaves)], ref_leaves)
+        ms = [f"{np.median(r[name]['ms']):.3f}" for r in ranks]
+        log(f"  {name}: {first['rows']} of {n_rows} collocation rows per "
+            f"rank; loss {first['loss']:.9g} (world of one "
+            f"{float(ref):.9g}, rel {rel:.2e}), gradients {g_scaled:.3e} "
+            f"(max abs {g_abs:.3e}), ranks bitwise equal; launches per "
+            f"value+grad {first['launches']}, collectives "
+            f"{first['collectives']}; value+grad per rank {', '.join(ms)} ms "
+            f"(host clock, median of 5, both ranks sharing one card)")
+        if not rel <= TOL_LOSS:
+            raise AssertionError(f"{name}: gloo loss differs by {rel:.2e}")
+    runs = [r["net_bc"]["lbfgs"] for r in ranks]
+    for r, run in enumerate(runs):
+        want = dict.fromkeys(run["launches"], 0)
+        want.update({k: n * run["evals"]
+                     for k, n in MESH_CONFIGS["net_bc"][4].items()})
+        if (run["iters"] != MESH_LBFGS_ITERS or run["launches"] != want
+                or run["collectives"] != {"sums": run["evals"],
+                                          "grads": run["evals"]}):
+            raise AssertionError(f"net_bc L-BFGS rank {r}: {run}")
+        if (run["evals"] != runs[0]["evals"] or run["loss"] != runs[0]["loss"]
+                or not np.array_equal(run["params"], runs[0]["params"])):
+            raise AssertionError(f"net_bc L-BFGS: ranks 0 and {r} differ")
+        total = add_launches(total, run["launches"])
+    first_loss = ranks[0]["net_bc"]["loss"]
+    walls = ", ".join(f"{run['wall_ms']:.1f}" for run in runs)
+    log(f"  net_bc L-BFGS, {MESH_LBFGS_ITERS} iterations: loss "
+        f"{first_loss:.6g} -> {runs[0]['loss']:.6g}, {runs[0]['evals']} "
+        f"evaluations on every rank, parameters bitwise equal on every rank; "
+        f"wall per rank {walls} ms (host clock, both ranks sharing one card; "
+        f"{card_line(torch)})")
+    if not runs[0]["loss"] < first_loss:
+        raise AssertionError(f"net_bc L-BFGS: {first_loss} -> "
+                             f"{runs[0]['loss']}")
+    return total
+
+
 def eager_copy(model):
     """The same model with every jet on the plain (eager) path."""
     if hasattr(model, "uv_model"):  # closed-form composite
@@ -2427,12 +2780,17 @@ def main() -> int:
     t0 = time.perf_counter()
     native_checks()
     log(f"phase native: {time.perf_counter() - t0:.2f} s")
+
+    # 20. Data parallelism over the points axis.
+    t0 = time.perf_counter()
+    mesh_launches = mesh_checks(torch, dev)
+    log(f"phase mesh: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         k["launches"] += sum(counts[k["name"]] for counts in (
             lbfgs_launches, pipe_launches, wave_launches,
             curriculum_launches, million_launches, endgame_launches,
             elastic3d_launches, fem_launches, inverse_launches,
-            adaptive_launches))
+            adaptive_launches, mesh_launches))
         if k["name"] in inverse_times:
             k.update(inverse_times[k["name"]])
             k["max_abs_err"] = max(k["max_abs_err"],

@@ -27,11 +27,15 @@ class PointBank:
       mask:   (N,) 1.0 for real points, 0.0 for padding.
       values: named per-point tensors, each (N, K) — boundary targets,
               normals, regression targets, etc.
+      mesh:   the ``parallel.mesh.Mesh`` this bank is one rank's shard of
+              (``shard_bank``), or None; the losses over a sharded bank
+              sum their masked means over the mesh's ranks.
     """
 
     xyt: torch.Tensor
     mask: torch.Tensor
     values: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    mesh: Optional[object] = None
 
     @property
     def n_total(self) -> int:

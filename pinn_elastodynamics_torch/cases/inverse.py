@@ -82,7 +82,7 @@ class InverseProblem:
         net = params["net"]
 
         def mms(name, r, mask):
-            # As losses/terms._mms: feed the extended-precision chunk
+            # As losses/terms.MaskedSums: feed the extended-precision chunk
             # collector (banks.ChunkSumCollector) so the host-f64 engine
             # (train/lbfgs_host.py) can drive the inverse problem too.
             if collector is not None:

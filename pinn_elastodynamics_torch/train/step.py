@@ -18,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 from ..banks import PointBank
 from ..losses.terms import LossSpec
 from ..ops.elasticity import Material
+from ..parallel.mesh import mesh_of, sum_grads_over_ranks, sum_over_ranks
 from ..utils.tree import tree_leaves, tree_map
 
 
@@ -87,9 +88,13 @@ def make_microbatched_loss_fn(
     backward recomputes a chunk's forward instead of storing it; this takes
     the place of ``jax.checkpoint`` inside ``lax.scan`` in the JAX package,
     and a Python loop over contiguous slices takes the place of the scan.
-    The PDE components are the count-weighted mean over chunks, which
-    equals the full-bank masked mean; non-collocation terms are evaluated
-    once, full batch.
+    Each chunk gives the local sum of squares and valid count of every
+    collocation mean square; they add up over the chunks, so each mean is
+    the full bank's sum over its count.  Non-collocation terms are
+    evaluated once, full batch.  Over banks sharded by
+    ``parallel.mesh.shard_banks`` the chunks split the rank's own shard,
+    and the sums and counts of both parts go through one all-reduce before
+    the means are formed.
     """
     col_terms = tuple(t for t in spec.terms if t[0] == collocation_key)
     other_terms = tuple(t for t in spec.terms if t[0] != collocation_key)
@@ -105,6 +110,9 @@ def make_microbatched_loss_fn(
                 f"{num_microbatches} microbatches"
             )
         chunk = n // num_microbatches
+        mesh = mesh_of(banks[name] for name, _ in spec.terms)
+        params = sum_grads_over_ranks(params, mesh)
+        col_keys = []
 
         def chunk_sums(params, i):
             # narrow on dim 0 keeps each slice contiguous, as the kernels
@@ -112,24 +120,22 @@ def make_microbatched_loss_fn(
             sl = lambda a: a.narrow(0, i * chunk, chunk)
             sub = PointBank(xyt=sl(bank.xyt), mask=sl(bank.mask),
                             values={k: sl(v) for k, v in bank.values.items()})
-            c = torch.sum(sub.mask)
-            _, comps = col_spec.evaluate(model, params, material,
-                                         {collocation_key: sub})
-            return {k: v * c for k, v in comps.items()}, c
+            sums = col_spec.masked_sums(model, params, material,
+                                        {collocation_key: sub})
+            col_keys[:] = sums.keys
+            return sums.packed()
 
-        sums = dict.fromkeys(("f_uv", "f_s"), 0.0)
-        count = 0.0
-        for i in range(num_microbatches):
-            new_sums, c = checkpoint(chunk_sums, params, i,
-                                     use_reentrant=False)
-            sums = {k: sums[k] + new_sums[k] for k in sums}
-            count = count + c
-        comps = {k: v / torch.clamp(count, min=1.0) for k, v in sums.items()}
-
-        _, comps_other = other_spec.evaluate(model, params, material, banks)
-        wmap = spec.weight_map()
+        col = checkpoint(chunk_sums, params, 0, use_reentrant=False)
+        for i in range(1, num_microbatches):
+            col = col + checkpoint(chunk_sums, params, i,
+                                   use_reentrant=False)
+        other = other_spec.masked_sums(model, params, material, banks)
+        parts = [col, other.packed()] if other.keys else [col]
+        packed = sum_over_ranks(torch.cat(parts), mesh)
+        n_col = 2 * len(col_keys)
+        comps = col_spec.components(col_keys, packed[:n_col])
+        comps_other = other_spec.components(other.keys, packed[n_col:])
         comps_all = {**comps_other, **comps}
-        total = sum(wmap.get(k, 0.0) * v for k, v in comps_all.items())
-        return total, comps_all
+        return spec.weighted(comps_all), comps_all
 
     return loss_fn
