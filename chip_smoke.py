@@ -137,6 +137,19 @@ use only), then, in order:
    B2), each rank on half the rows, each value+grad against the mesh-less
    one of the same weights, the ranks' losses, gradients and L-BFGS
    parameters bitwise equal, with the same number of evaluations;
+21. the framework's entry points (``pinn_elastodynamics_torch/entry.py``)
+   over worlds of ranks (``parallel/launch.py``): ``entry()`` on the card
+   against the plain float64 forward; ``dryrun_multichip`` (one Adam step
+   and 3 L-BFGS iterations of the net-BC plate, its loss in 2
+   microbatches and on the kernel route, 3 L-BFGS iterations of the
+   analytic + Fourier8 plate, all at scale 0.002 padded to 2 x the world)
+   over NCCL with one rank per card, and over gloo with two ranks sharing
+   the card: the ranks bitwise equal, each piece against the same piece
+   run mesh-less here (losses and gradient norms within 1e-5 relative;
+   the L-BFGS losses of the gloo world within 1e-3), and the launches of
+   B4, B5, B1 and B3b as the pieces predict; then the inverse problem (B1,
+   B2) and ``topk_refine`` (B1; k = 4,096, one gather) over an NCCL world
+   of one in this process, bitwise against mesh-less, both timed;
 
 and prints one JSON line describing the kernels, then, only if every phase
 passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -270,10 +283,10 @@ N_NATIVE = 1_048_576
 # Phase 20: data parallelism over the points axis.
 MESH_SCALE = 1.0
 MESH_BACKEND_1 = "nccl"   # the world of one in this process
-MESH_WORLD = 2            # the spawned gloo world, every rank on cuda:0
-MESH_DEVICE = "cuda:0"
-MESH_TIMEOUT_S = 60       # every process group's limit on a collective
-MESH_JOIN_S = 240         # the spawned world's limit
+MESH_WORLD = 2            # the spawned gloo world: rank r on cuda:{r % cards}
+MESH_DEVICE = "cuda"
+MESH_TIMEOUT_S = 60       # the world of one's limit on a collective
+MESH_JOIN_S = 240         # the spawned world's limit, spawn to exit
 MESH_LBFGS_ITERS = 3
 MESH_MICROBATCHES = 2
 N_MESH_HALF = 51_856      # collocation rows per rank: 103,711 padded to 2
@@ -292,6 +305,22 @@ MESH_CONFIGS = {
         {"fused_mlp_jet": 2 * MESH_MICROBATCHES,
          "fused_mlp_jet_bwd": MESH_MICROBATCHES}),
 }
+
+# Phase 21: the entry points.  The dry run's kernel launches per value+grad
+# of each piece (the microbatched one recomputes each chunk's forward in
+# the backward); the L-BFGS pieces make one value+grad per evaluation.
+DRYRUN_GLOO_WORLD = 2     # ranks sharing the card under gloo
+DRYRUN_PER_EVAL = {
+    "adam": {"fused_composite_jet": 1, "fused_composite_jet_bwd": 1},
+    "lbfgs": {"fused_composite_jet": 1, "fused_composite_jet_bwd": 1},
+    "micro": {"fused_composite_jet": 4, "fused_composite_jet_bwd": 2},
+    "kernel": {"fused_composite_jet": 1, "fused_composite_jet_bwd": 1},
+    "analytic": {"fused_mlp_jet": 1, "fused_seed_jet_bwd": 1},
+}
+TOL_DRYRUN_LBFGS = 1e-3   # relative, 3 f32 L-BFGS iterations, half banks
+N_ENTRY_PROBES = 4_000    # probes of the inverse problem's frames
+ENTRY_REFINE_K = 4096
+ENTRY_RUNS = 5
 
 
 def log(msg: str) -> None:
@@ -2157,16 +2186,11 @@ def flat_numpy(tree):
                            for t in tree_leaves(tree)])
 
 
-def mesh_rank(rank, root):
-    """One rank of phase 20's gloo world (spawned): each configuration's
-    value+grad on its shard, host-clock times, and net-BC's L-BFGS
-    iterations; the results go to ``root/rank<rank>.pkl``."""
-    import datetime
-    import os
-    import pickle
-
+def mesh_rank(mesh, setup):
+    """One rank of phase 20's gloo world (``run_world``): each
+    configuration's value+grad on its shard, host-clock times, and
+    net-BC's L-BFGS iterations."""
     import torch
-    import torch.distributed as dist
 
     from pinn_elastodynamics_torch.kernels import fused_jet as fj
     from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
@@ -2175,63 +2199,50 @@ def mesh_rank(rank, root):
     from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
     from pinn_elastodynamics_torch.train.step import value_and_grad
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    with open(os.path.join(root, "setup.pkl"), "rb") as f:
-        setup = pickle.load(f)
-    dev = torch.device(setup["device"])
+    dev = mesh.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(root, "store"), MESH_WORLD),
-        rank=rank, world_size=MESH_WORLD,
-        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     out = {}
-    try:
-        mesh = pmesh.make_mesh(device=dev)
-        for name in MESH_CONFIGS:
-            case = mesh_case(dev, name, mesh_pad(name, MESH_WORLD),
-                             setup["scale"])
-            case = dataclasses.replace(
-                case, banks=pmesh.shard_banks(case.banks, mesh))
-            params = pmesh.replicate(
-                params_from_jax(setup["trees"][name], device=dev), mesh)
-            fn, sub = mesh_loss(case, name, params)
-            loss, grads, launches, coll = counted_mesh_vg(torch, fn, sub,
-                                                          sync)
-            times = []
-            for _ in range(5):
-                start = time.perf_counter()
-                value_and_grad(fn, sub)
-                sync()
-                times.append(1e3 * (time.perf_counter() - start))
-            res = dict(loss=float(loss), grads=flat_numpy(grads),
-                       launches=launches, collectives=coll, ms=times,
-                       rows=case.banks["collocation"].n_total)
-            if name == "net_bc":
-                evals = []
+    for name in MESH_CONFIGS:
+        case = mesh_case(dev, name, mesh_pad(name, mesh.size),
+                         setup["scale"])
+        case = dataclasses.replace(
+            case, banks=pmesh.shard_banks(case.banks, mesh))
+        params = pmesh.replicate(
+            params_from_jax(setup["trees"][name], device=dev), mesh)
+        fn, sub = mesh_loss(case, name, params)
+        loss, grads, launches, coll = counted_mesh_vg(torch, fn, sub, sync)
+        times = []
+        for _ in range(5):
+            start = time.perf_counter()
+            value_and_grad(fn, sub)
+            sync()
+            times.append(1e3 * (time.perf_counter() - start))
+        res = dict(loss=float(loss), grads=flat_numpy(grads),
+                   launches=launches, collectives=coll, ms=times,
+                   rows=case.banks["collocation"].n_total)
+        if name == "net_bc":
+            evals = []
 
-                def counted(p):
-                    evals.append(1)
-                    return fn(p)
+            def counted(p):
+                evals.append(1)
+                return fn(p)
 
-                fj.reset_launches()
-                fv.reset_launches()
-                pmesh.reset_collectives()
-                start = time.perf_counter()
-                run = lbfgs.minimize(counted, sub, maxiter=MESH_LBFGS_ITERS,
-                                     segment=MESH_LBFGS_ITERS)
-                sync()
-                res["lbfgs"] = dict(
-                    wall_ms=1e3 * (time.perf_counter() - start),
-                    loss=float(run.final_loss), iters=run.n_iters,
-                    evals=len(evals), params=flat_numpy(run.params),
-                    launches={**fj.LAUNCHES, **fv.LAUNCHES},
-                    collectives=dict(pmesh.COLLECTIVES))
-            out[name] = res
-    finally:
-        dist.destroy_process_group()
-    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
+            fj.reset_launches()
+            fv.reset_launches()
+            pmesh.reset_collectives()
+            start = time.perf_counter()
+            run = lbfgs.minimize(counted, sub, maxiter=MESH_LBFGS_ITERS,
+                                 segment=MESH_LBFGS_ITERS)
+            sync()
+            res["lbfgs"] = dict(
+                wall_ms=1e3 * (time.perf_counter() - start),
+                loss=float(run.final_loss), iters=run.n_iters,
+                evals=len(evals), params=flat_numpy(run.params),
+                launches={**fj.LAUNCHES, **fv.LAUNCHES},
+                collectives=dict(pmesh.COLLECTIVES))
+        out[name] = res
+    out["device"] = str(dev)
+    return out
 
 
 def mesh_checks(torch, dev):
@@ -2241,18 +2252,15 @@ def mesh_checks(torch, dev):
     of MESH_WORLD spawned ranks on one card against the mesh-less
     value+grads of the same weights.  Returns the kernel launches of the
     counted runs."""
+    import concurrent.futures
     import datetime
-    import multiprocessing
-    import os
-    import pickle
-    import tempfile
 
     import torch.distributed as dist
 
     from pinn_elastodynamics_torch.parallel import mesh as pmesh
+    from pinn_elastodynamics_torch.parallel.launch import run_world
     from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
     from pinn_elastodynamics_torch.train.step import value_and_grad
-
     from pinn_elastodynamics_torch.utils.tree import tree_leaves
 
     sync = torch.cuda.synchronize
@@ -2282,7 +2290,8 @@ def mesh_checks(torch, dev):
             f"; launches {launches}, collectives {coll}")
         expected = dict.fromkeys(launches, 0)
         expected.update(MESH_CONFIGS["net_bc"][4])
-        if launches != expected or coll != {"sums": 1, "grads": 1}:
+        if launches != expected or coll != {"sums": 1, "grads": 1,
+                                            "gathers": 0}:
             raise AssertionError(f"world of one: launches {launches}, "
                                  f"collectives {coll}")
         if not rel <= TOL_MESH:
@@ -2300,44 +2309,26 @@ def mesh_checks(torch, dev):
     finally:
         dist.destroy_process_group()
 
-    # (b) A gloo world of MESH_WORLD spawned ranks, all on one card.
-    ctx = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory() as root:
-        with open(os.path.join(root, "setup.pkl"), "wb") as f:
-            pickle.dump(dict(device=MESH_DEVICE, scale=MESH_SCALE,
-                             trees=trees), f)
+    # (b) A gloo world of MESH_WORLD spawned ranks, sharing the card.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
         start = time.perf_counter()
-        procs = [ctx.Process(target=mesh_rank, args=(r, root))
-                 for r in range(MESH_WORLD)]
-        for p in procs:
-            p.start()
-        try:
-            refs = {}
-            for name in MESH_CONFIGS:   # the world of one, meanwhile
-                case = mesh_case(dev, name, mesh_pad(name, MESH_WORLD),
-                                 MESH_SCALE)
-                fn, sub = mesh_loss(
-                    case, name, params_from_jax(trees[name], device=dev))
-                refs[name] = (value_and_grad(fn, sub),
-                              case.banks["collocation"].n_total)
-                del case
-            for p in procs:
-                p.join(max(1.0, MESH_JOIN_S - (time.perf_counter() - start)))
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.terminate()
-                    p.join(10)
+        world = pool.submit(run_world, mesh_rank, MESH_WORLD,
+                            device=MESH_DEVICE, backend="gloo",
+                            timeout_s=MESH_JOIN_S,
+                            payload=dict(scale=MESH_SCALE, trees=trees))
+        refs = {}
+        for name in MESH_CONFIGS:   # the world of one, meanwhile
+            case = mesh_case(dev, name, mesh_pad(name, MESH_WORLD),
+                             MESH_SCALE)
+            fn, sub = mesh_loss(
+                case, name, params_from_jax(trees[name], device=dev))
+            refs[name] = (value_and_grad(fn, sub),
+                          case.banks["collocation"].n_total)
+            del case
+        ranks = world.result()
         wall = time.perf_counter() - start
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * MESH_WORLD:
-            raise AssertionError(f"gloo world: rank exit codes {codes}")
-        ranks = []
-        for r in range(MESH_WORLD):
-            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
-                ranks.append(pickle.load(f))
-    log(f"  gloo world of {MESH_WORLD} on {MESH_DEVICE}: {wall:.2f} s from "
-        f"spawn to exit")
+    log(f"  gloo world of {MESH_WORLD} on {[r['device'] for r in ranks]}: "
+        f"{wall:.2f} s from spawn to exit")
     for name, (_, _, _, _, per_eval) in MESH_CONFIGS.items():
         (ref, ref_grads), n_rows = refs[name]
         first = ranks[0][name]
@@ -2346,7 +2337,8 @@ def mesh_checks(torch, dev):
             expected = dict.fromkeys(res["launches"], 0)
             expected.update(per_eval)
             if (res["launches"] != expected
-                    or res["collectives"] != {"sums": 1, "grads": 1}):
+                    or res["collectives"] != {"sums": 1, "grads": 1,
+                                              "gathers": 0}):
                 raise AssertionError(f"{name} rank {r}: launches "
                                      f"{res['launches']}, collectives "
                                      f"{res['collectives']}")
@@ -2383,7 +2375,8 @@ def mesh_checks(torch, dev):
                      for k, n in MESH_CONFIGS["net_bc"][4].items()})
         if (run["iters"] != MESH_LBFGS_ITERS or run["launches"] != want
                 or run["collectives"] != {"sums": run["evals"],
-                                          "grads": run["evals"]}):
+                                          "grads": run["evals"],
+                                          "gathers": 0}):
             raise AssertionError(f"net_bc L-BFGS rank {r}: {run}")
         if (run["evals"] != runs[0]["evals"] or run["loss"] != runs[0]["loss"]
                 or not np.array_equal(run["params"], runs[0]["params"])):
@@ -2401,6 +2394,206 @@ def mesh_checks(torch, dev):
                              f"{runs[0]['loss']}")
     return total
 
+
+def dryrun_launches_expected(res):
+    """piece -> the launches the dry run's pieces predict (kernel -> count;
+    the others 0) from one rank's L-BFGS evaluation counts."""
+    evals = {"adam": 1, "lbfgs": res["lbfgs_evals"], "micro": 1,
+             "kernel": 1, "analytic": res["analytic_evals"]}
+    out = {}
+    for piece, per_eval in DRYRUN_PER_EVAL.items():
+        want = dict.fromkeys(res["launches"][piece], 0)
+        want.update({k: n * evals[piece] for k, n in per_eval.items()})
+        out[piece] = want
+    return out
+
+
+def check_dryrun(label, ranks, ref, lbfgs_limit):
+    """A dry run's ranks against the same pieces run mesh-less in this
+    process: losses and gradient norms within TOL_LOSS relative (the
+    L-BFGS losses within ``lbfgs_limit``), launches as the pieces predict
+    on every rank and in the mesh-less run.  Returns the ranks' launches
+    summed."""
+    first = ranks[0]
+    worst = {}
+    for key in ("adam_loss", "lbfgs_loss", "micro_loss", "micro_grad_norm",
+                "kernel_loss", "kernel_grad_norm", "analytic_loss"):
+        rel = abs(first[key] - ref[key]) / abs(ref[key])
+        limit = lbfgs_limit if key in ("lbfgs_loss", "analytic_loss") \
+            else TOL_LOSS
+        if not rel <= limit:
+            raise AssertionError(f"{label}: {key} {first[key]!r} against "
+                                 f"mesh-less {ref[key]!r}, rel {rel:.2e}")
+        worst[key] = f"{rel:.2e}"
+    bitwise = all(first[k] == ref[k] for k in worst) and all(
+        np.array_equal(first[k], ref[k])
+        for k in ("adam_params", "lbfgs_params", "analytic_params"))
+    total = None
+    for who, res in [("mesh-less", ref)] + [(f"rank {r}", x)
+                                            for r, x in enumerate(ranks)]:
+        want = dryrun_launches_expected(res)
+        if res["launches"] != want:
+            raise AssertionError(f"{label} {who}: launches {res['launches']} "
+                                 f"!= {want}")
+        if who != "mesh-less":
+            for counts in res["launches"].values():
+                total = add_launches(total, counts)
+    secs = lambda res: ", ".join(f"{k} {v:.3f}"
+                                 for k, v in res["seconds"].items())
+    log(f"  {label}: against mesh-less, rel {worst}, bitwise {bitwise}; "
+        f"L-BFGS evaluations {first['lbfgs_evals']} and "
+        f"{first['analytic_evals']} (mesh-less {ref['lbfgs_evals']} and "
+        f"{ref['analytic_evals']}); launches per piece {first['launches']}; "
+        f"collectives {first['collectives']}")
+    log(f"    seconds per piece, rank 0: {secs(first)}; mesh-less: "
+        f"{secs(ref)} (host clock, synchronised)")
+    return total
+
+
+def entry_checks(torch, dev):
+    """Phase 21: the framework's entry points.  (a) ``entry()`` on the
+    card against the plain float64 forward; (b) ``dryrun_multichip`` over
+    NCCL, one rank per card, and (c) over gloo with DRYRUN_GLOO_WORLD ranks
+    sharing the card, each against the same pieces run mesh-less here;
+    (d) the inverse problem and (e) ``topk_refine`` over an NCCL world of
+    one in this process against mesh-less.  Returns the kernel launches of
+    the counted runs."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pinn_elastodynamics_torch import entry as tentry
+    from pinn_elastodynamics_torch.cases import inverse, wave_confined
+    from pinn_elastodynamics_torch.geometry.adaptive import topk_refine
+    from pinn_elastodynamics_torch.kernels import fused_jet as fj
+    from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+    from pinn_elastodynamics_torch.parallel import mesh as pmesh
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+    from pinn_elastodynamics_torch.train.step import value_and_grad
+
+    # (a) The flagship forward.
+    fn, (params, xyt) = tentry.entry()
+    with torch.no_grad():
+        out = fn(params, xyt)
+        ref = fn(to64(params), xyt.double())
+    scaled, err = max_scaled(out, ref)
+    log(f"  entry(): forward {tuple(out.shape)} {out.dtype} on "
+        f"{out.device}, {scaled:.3e} scaled (max abs {err:.3e}) against "
+        f"plain f64")
+    if out.shape != (256, 5) or not scaled <= TOL_FD:
+        raise AssertionError(f"entry(): {tuple(out.shape)}, {scaled:.3e}")
+
+    # (b) NCCL, one rank per card; (c) gloo, ranks sharing the card.
+    trees = tentry.seeded_trees(SEED)
+    total = None
+    for n, backend in ((torch.cuda.device_count(), None),
+                       (DRYRUN_GLOO_WORLD, "gloo")):
+        label = f"dryrun_multichip({n}) over {backend or 'nccl'}"
+        start = time.perf_counter()
+        ranks = tentry.dryrun_multichip(n, backend=backend, trees=trees)
+        wall = time.perf_counter() - start
+        ref = tentry.dryrun_pieces(trees, 2 * n, dev)
+        log(f"  {label}: {wall:.2f} s from spawn to exit, cards "
+            f"{[r['card'] for r in ranks]}, ranks bitwise equal")
+        limit = TOL_LOSS if backend is None and n == 1 else TOL_DRYRUN_LBFGS
+        total = add_launches(total, check_dryrun(label, ranks, ref, limit))
+
+    # (d), (e) An NCCL world of one in this process.
+    rng = np.random.default_rng(SEED + 21)
+    with tempfile.TemporaryDirectory() as tmp:
+        fem_dir = os.path.join(tmp, wave_confined.FEM_DIR)
+        os.makedirs(fem_dir)
+        xy = rng.uniform(0.0, 30.0, (N_ENTRY_PROBES, 2))
+        for i in range(57):
+            write_frame(fem_dir, i, xy, plane_p_wave(xy[:, 0] - 15.0,
+                                                     i * 14.0 / 56))
+        problem, banks = inverse.build(scale=1.0, fem_dir=fem_dir,
+                                       accel_weight=INVERSE_ACCEL, device=dev)
+    params = params_from_jax(
+        {"net": mlp_tree(rng, list(problem.model.layers)),
+         "log_E": np.log(problem.E_init), "log_rho": np.log(problem.rho_init)},
+        device=dev)
+    bank = banks["collocation"]
+    lo, hi = (np.asarray(b) for b in CONFINED_BOX)
+    cands = lo + (hi - lo) * rng.uniform(size=(bank.n_total, 3))
+    refine = lambda b: topk_refine(problem.model, params["net"],
+                                   problem.material(params), problem.plane,
+                                   b, cands, ENTRY_REFINE_K)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, timeout=datetime.timedelta(
+                                seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = pmesh.make_mesh(device=dev)
+        sharded = pmesh.shard_banks(banks, mesh)
+        fn = problem.loss_fn(sharded)
+        loss, grads, launches, _ = counted_value_and_grad(
+            torch, "inverse over an NCCL world of 1", fn, params,
+            {"fused_mlp_jet": 2, "fused_mlp_jet_bwd": 2})
+        pmesh.reset_collectives()
+        value_and_grad(fn, params)
+        coll = dict(pmesh.COLLECTIVES)
+        ref_loss, ref_grads = value_and_grad(problem.loss_fn(banks), params)
+        same = bool(torch.equal(loss, ref_loss)) and bitwise_equal(
+            grads, ref_grads)
+        log(f"  inverse, world of 1 against mesh-less: loss {float(loss):.9g}"
+            f" ({float(ref_loss):.9g}), loss and gradients bitwise {same}; "
+            f"collectives per value+grad {coll}")
+        if not same or coll != {"sums": 1, "grads": 1, "gathers": 0}:
+            raise AssertionError(f"inverse world of one: bitwise {same}, "
+                                 f"collectives {coll}")
+        total = add_launches(total, launches)
+        times = turns(torch, {
+            "mesh-less": lambda: value_and_grad(problem.loss_fn(banks),
+                                                params),
+            "world 1": lambda: value_and_grad(fn, params)})
+
+        refine(bank)   # warm-up
+        torch.cuda.synchronize()
+        fj.reset_launches()
+        fv.reset_launches()
+        pmesh.reset_collectives()
+        new, info = refine(sharded["collocation"])
+        torch.cuda.synchronize()
+        launches = {**fj.LAUNCHES, **fv.LAUNCHES}
+        coll = dict(pmesh.COLLECTIVES)
+        want = dict.fromkeys(launches, 0)
+        want["fused_mlp_jet"] = 2
+        ref_new, ref_info = refine(bank)
+        same = (torch.equal(new.xyt, ref_new.xyt)
+                and torch.equal(new.mask, ref_new.mask) and info == ref_info)
+        log(f"  topk_refine k={ENTRY_REFINE_K} over the world of 1: the "
+            f"mesh-less bank {same}, mesh kept {new.mesh is mesh}, launches "
+            f"{launches}, collectives {coll}; gathered "
+            f"{4 * bank.n_total} bytes ({bank.n_total} float32)")
+        if (not same or new.mesh is not mesh or launches != want
+                or coll != {"sums": 0, "grads": 0, "gathers": 1}):
+            raise AssertionError(f"topk_refine world of one: same {same}, "
+                                 f"launches {launches}, collectives {coll}")
+        total = add_launches(total, launches)
+        refine_ms = {"mesh-less": [], "world 1": []}
+        for _ in range(ENTRY_RUNS):
+            for key, b in (("mesh-less", bank),
+                           ("world 1", sharded["collocation"])):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                refine(b)
+                torch.cuda.synchronize()
+                refine_ms[key].append(1e3 * (time.perf_counter() - start))
+    finally:
+        dist.destroy_process_group()
+    a, b = times["mesh-less"], times["world 1"]
+    log(f"  inverse value+grad: mesh-less {np.median(a):.3f} ms "
+        f"[{min(a):.3f}, {max(a):.3f}], NCCL world of 1 {np.median(b):.3f} ms "
+        f"[{min(b):.3f}, {max(b):.3f}] (CUDA events, median and range of 15 "
+        f"in three turns); topk_refine mesh-less "
+        f"{np.median(refine_ms['mesh-less']):.3f} ms, world of 1 "
+        f"{np.median(refine_ms['world 1']):.3f} ms (host clock, median of "
+        f"{ENTRY_RUNS} in turns; {card_line(torch)})")
+    del problem, banks, sharded, params, grads, ref_grads
+    torch.cuda.empty_cache()
+    return total
 
 def eager_copy(model):
     """The same model with every jet on the plain (eager) path."""
@@ -2785,12 +2978,22 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_launches = mesh_checks(torch, dev)
     log(f"phase mesh: {time.perf_counter() - t0:.2f} s")
+
+    # 21. The entry points, over worlds of ranks.
+    t0 = time.perf_counter()
+    entry_launches = entry_checks(torch, dev)
+    log(f"  launches of the counted runs: {entry_launches}")
+    for name in ("fused_mlp_jet", "fused_composite_jet", "fused_mlp_jet_bwd",
+                 "fused_seed_jet_bwd", "fused_composite_jet_bwd"):
+        if entry_launches[name] < 1:
+            raise AssertionError(f"phase entry did not launch {name}")
+    log(f"phase entry: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         k["launches"] += sum(counts[k["name"]] for counts in (
             lbfgs_launches, pipe_launches, wave_launches,
             curriculum_launches, million_launches, endgame_launches,
             elastic3d_launches, fem_launches, inverse_launches,
-            adaptive_launches, mesh_launches))
+            adaptive_launches, mesh_launches, entry_launches))
         if k["name"] in inverse_times:
             k.update(inverse_times[k["name"]])
             k["max_abs_err"] = max(k["max_abs_err"],

@@ -13,9 +13,11 @@ float64 L-BFGS over chunk-summed losses, ``train/lbfgs_host.py``), the
 phase pipeline and the time-horizon curriculum with checkpoint and
 resume, the CLI (``python -m pinn_elastodynamics_torch.run``), rendering
 and the HTTP field server, the FEM comparison, the inverse problem,
-adaptive sampling, and data parallelism over the points axis
+adaptive sampling, data parallelism over the points axis
 (``parallel/mesh.py``: sharded banks, replicated parameters, the masked
-means and the gradient summed over the ranks).
+means and the gradient summed over the ranks; ``parallel/launch.py``: a
+world of ranks, NCCL with one per card), and the framework's entry points
+(``entry.py``: the flagship forward and a multi-rank dry run).
 The fused jets and their backward run as hand-written CUDA kernels
 (kernels/csrc/), built with ``nvcc`` at first use and reached through
 autograd Functions (kernels/fused_jet_vjp.py); this module does not load

@@ -32,11 +32,13 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..banks import PointBank, make_bank, masked_mean_square
+from ..banks import PointBank, make_bank
 from ..device import resolve_device
+from ..losses.terms import LossSpec, MaskedSums
 from ..models.fields import FieldSpec, FIRST_ORDER, MLPFieldModel
 from ..ops import residuals as res_ops
 from ..ops.elasticity import Material, PLANE_STRAIN
+from ..parallel.mesh import mesh_of, sum_grads_over_ranks, sum_over_ranks
 from . import wave_confined
 
 
@@ -77,27 +79,30 @@ class InverseProblem:
 
     def loss_and_aux(self, params, banks: Dict[str, PointBank],
                      *, collector=None):
+        """(total, components).  Every masked mean square is recorded as a
+        sum and a count (``losses.terms.MaskedSums``) and divided once; over
+        banks sharded by ``parallel.mesh.shard_banks`` the sums and counts
+        go through one all-reduce and the gradient through one more, so
+        every rank holds the global loss and gradient.  ``collector``
+        (banks.ChunkSumCollector, the host-f64 engine of
+        train/lbfgs_host.py) also gets each square's chunk sums; it takes
+        no sharded banks."""
+        mesh = mesh_of(banks.values())
+        if mesh is not None and collector is not None:
+            raise ValueError("the chunk-sum collector takes no sharded banks")
+        params = sum_grads_over_ranks(params, mesh)
         mat = self.material(params)
         spec = self.model.spec
         net = params["net"]
-
-        def mms(name, r, mask):
-            # As losses/terms.MaskedSums: feed the extended-precision chunk
-            # collector (banks.ChunkSumCollector) so the host-f64 engine
-            # (train/lbfgs_host.py) can drive the inverse problem too.
-            if collector is not None:
-                collector.add(name, r, mask)
-            return masked_mean_square(r, mask)
+        sums = MaskedSums(chunks=collector)
 
         jet = self.model.jet(net, banks["collocation"].xyt)
         res = res_ops.residuals(jet, spec, mat, self.plane)
         cmask = banks["collocation"].mask
-        comps = {
-            "f_uv": sum(mms("f_uv", res[n], cmask)
-                        for n in res_ops.momentum_group(spec)),
-            "f_s": sum(mms("f_s", res[n], cmask)
-                       for n in res_ops.stress_group(spec)),
-        }
+        for n in res_ops.momentum_group(spec):
+            sums.add("f_uv", res[n], cmask)
+        for n in res_ops.stress_group(spec):
+            sums.add("f_s", res[n], cmask)
 
         sens = banks["sensors"]
         iu, iv = spec.index("u"), spec.index("v")
@@ -110,26 +115,23 @@ class InverseProblem:
             sjet = self.model.jet(net, sens.xyt, order=2)
             fields = sjet.f
             a_obs = sens.values["att"]
-            comps["DATA_TT"] = (
-                mms("DATA_TT", sjet.dtt[:, iu] - a_obs[:, 0], sens.mask)
-                + mms("DATA_TT", sjet.dtt[:, iv] - a_obs[:, 1], sens.mask)
-            )
+            sums.add("DATA_TT", sjet.dtt[:, iu] - a_obs[:, 0], sens.mask)
+            sums.add("DATA_TT", sjet.dtt[:, iv] - a_obs[:, 1], sens.mask)
         else:
             fields = self.model.apply(net, sens.xyt)
         obs = sens.values["uv"]
-        comps["DATA"] = (
-            mms("DATA", fields[:, iu] - obs[:, 0], sens.mask)
-            + mms("DATA", fields[:, iv] - obs[:, 1], sens.mask)
-        )
+        sums.add("DATA", fields[:, iu] - obs[:, 0], sens.mask)
+        sums.add("DATA", fields[:, iv] - obs[:, 1], sens.mask)
         if "s" in sens.values:
             # Stress observations: the scale anchor (see module docstring).
             s_obs = sens.values["s"]
-            comps["DATA_S"] = sum(
-                mms("DATA_S",
-                    fields[:, spec.index(ch)] - s_obs[:, j], sens.mask)
-                for j, ch in enumerate(("s11", "s22", "s12"))
-            )
+            for j, ch in enumerate(("s11", "s22", "s12")):
+                sums.add("DATA_S", fields[:, spec.index(ch)] - s_obs[:, j],
+                         sens.mask)
 
+        # One term: each component adds its means in the order made.
+        comps = LossSpec.components(sums.keys,
+                                    sum_over_ranks(sums.packed(), mesh))
         wmap = dict(self.weights)
         total = sum(wmap.get(k, 0.0) * v for k, v in comps.items())
         comps["E"] = mat.E

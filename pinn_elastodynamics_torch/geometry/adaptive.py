@@ -29,6 +29,7 @@ import torch
 from ..banks import PointBank
 from ..ops import residuals as res_ops
 from ..ops.elasticity import Material
+from ..parallel.mesh import gather_over_ranks
 from ..utils.tree import tree_leaves
 
 
@@ -60,7 +61,12 @@ def topk_refine(
     highest-residual candidates (bank shape unchanged).
 
     Padding rows (mask 0) are replaced before any real point is evicted.
-    Only value-free banks (collocation) are taken.
+    Only value-free banks (collocation) are taken.  Over a bank sharded by
+    ``parallel.mesh.shard_bank`` the ranking is global, as ``lax.top_k``
+    over a sharded array is: every rank evaluates the (replicated)
+    candidates and its own rows, one all-gather joins the bank residuals
+    in rank order, and each rank writes the picked slots that fall in its
+    rows; the result keeps the bank's mesh.
     """
     if bank.values:
         raise ValueError(
@@ -73,15 +79,20 @@ def topk_refine(
     # Padding rows get -inf so they are evicted first.
     r_bank = torch.where(bank.mask > 0, r_bank,
                          torch.full_like(r_bank, -torch.inf))
+    r_all = gather_over_ranks(r_bank, bank.mesh)
+    rank = bank.mesh.rank if bank.mesh is not None else 0
 
     worst_cand = _top_indices(r_cand, k)          # best candidates
-    best_bank = _top_indices(-r_bank, k)          # weakest bank slots
+    best_bank = _top_indices(-r_all, k)           # weakest bank slots
+    # The picked slots in this rank's rows, as local indices.
+    local = best_bank - rank * bank.n_total
+    mine = (local >= 0) & (local < bank.n_total)
 
     new_xyt = bank.xyt.clone()
-    new_xyt[best_bank] = cand[worst_cand]
+    new_xyt[local[mine]] = cand[worst_cand[mine]]
     new_mask = bank.mask.clone()
-    new_mask[best_bank] = 1.0
-    evicted = r_bank[best_bank]
+    new_mask[local[mine]] = 1.0
+    evicted = r_all[best_bank]
     info = {
         "replaced": k,
         "cand_residual_mean": float(torch.mean(r_cand[worst_cand])),
@@ -89,7 +100,8 @@ def topk_refine(
             torch.where(torch.isfinite(evicted), evicted,
                         torch.zeros_like(evicted)))),
     }
-    return PointBank(xyt=new_xyt, mask=new_mask, values={}), info
+    return PointBank(xyt=new_xyt, mask=new_mask, values={},
+                     mesh=bank.mesh), info
 
 
 def residual_resample(

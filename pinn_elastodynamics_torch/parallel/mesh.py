@@ -39,9 +39,11 @@ from ..utils.tree import tree_leaves, tree_map
 
 POINTS_AXIS = "points"
 
-# Reductions made, by kind: "sums" (a loss's packed sums and counts, in the
-# forward) and "grads" (the packed gradient, in the backward).
-COLLECTIVES = {"sums": 0, "grads": 0}
+# Collectives made, by kind: "sums" (a loss's packed sums and counts, in the
+# forward), "grads" (the packed gradient, in the backward) and "gathers"
+# (a sharded bank's per-row values joined on every rank, in
+# ``geometry.adaptive.topk_refine``).
+COLLECTIVES = {"sums": 0, "grads": 0, "gathers": 0}
 
 
 def reset_collectives() -> None:
@@ -171,6 +173,20 @@ def sum_over_ranks(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     if mesh is None or mesh.group is None:
         return x
     return _SumOverRanks.apply(x, mesh.group)
+
+
+def gather_over_ranks(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Every rank's ``x`` (the same shape on each) concatenated along the
+    first axis in rank order: for a sharded bank's per-row values, the
+    whole bank's, since the shards are contiguous in rank order (one
+    all-gather, not differentiable).  ``x`` itself with no mesh or no
+    process group."""
+    if mesh is None or mesh.group is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    COLLECTIVES["gathers"] += 1
+    return torch.cat(parts)
 
 
 class _SumGrads(torch.autograd.Function):

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..banks import ChunkSumCollector
+from ..parallel.mesh import mesh_of
 from ..utils.tree import tree_leaves, tree_map
 from ..utils.treepath import path_get, path_set
 
@@ -117,6 +118,9 @@ def _make_host_vg(total, sub0, banks, wmap, scale: float, chunk_size: int):
     f32 tree shaped like ``sub0`` that feeds every masked square-and-mean
     to the collector; ``wmap`` and ``scale`` rebuild that loss in float64
     from the collector's chunk sums."""
+    if mesh_of(banks.values()) is not None:
+        raise ValueError("the chunk-sum collector takes no sharded banks: "
+                         "the host engine runs on one device")
     too_big = {k: b.n_total for k, b in banks.items()
                if b.n_total >= MAX_EXACT_COUNT}
     if too_big:

@@ -2,9 +2,9 @@
 in gloo worlds of 2 and 4 on the CPU, f64, the counterpart of
 ``tests/test_sharding.py``.
 
-Each world is spawned once for the module; its ranks rendezvous through a
-``FileStore``, run every check's computation and write their results to
-``tmp_path``, and each test reads them.  The references are the port's
+Each world is spawned once for the module by ``parallel/launch.py::
+run_world`` (gloo on the CPU); its ranks run every check's computation and
+return their results, which each test reads.  The references are the port's
 single process and the JAX package (single device, and its own 8-device
 sharded loss on the virtual CPU mesh of ``tests/conftest.py``), fed the
 same seeded numpy parameters.
@@ -13,26 +13,33 @@ The ranks import this module again, so JAX is imported only inside the
 parent's fixtures.
 """
 
+import concurrent.futures
 import dataclasses
-import datetime
-import multiprocessing
 import os
-import pickle
 import sys
 
 import numpy as np
 import pytest
+import scipy.io
 import torch
 import torch.distributed as dist
 
-from pinn_elastodynamics_torch.banks import PointBank, make_bank
-from pinn_elastodynamics_torch.cases import plate_hole, wave_confined
+from pinn_elastodynamics_torch.banks import (
+    ChunkSumCollector,
+    PointBank,
+    make_bank,
+    masked_mean_square,
+)
+from pinn_elastodynamics_torch.cases import inverse, plate_hole, wave_confined
 from pinn_elastodynamics_torch.cases.base import mixed_precision_phase_fn
+from pinn_elastodynamics_torch.geometry.adaptive import topk_refine
 from pinn_elastodynamics_torch.losses import terms
+from pinn_elastodynamics_torch.parallel import launch
 from pinn_elastodynamics_torch.parallel import mesh as pmesh
 from pinn_elastodynamics_torch.train import lbfgs
 from pinn_elastodynamics_torch.train.adam import Adam
 from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+from pinn_elastodynamics_torch.train.lbfgs_host import make_host_problem_vg
 from pinn_elastodynamics_torch.train.step import (
     make_grad_step,
     make_loss_fn,
@@ -44,11 +51,17 @@ from pinn_elastodynamics_torch.utils.tree import tree_leaves
 F64 = torch.float64
 SCALE = 0.002
 WORLDS = (2, 4)
-TIMEOUT_S = 60          # every process group's and every join's limit
+TIMEOUT_S = 300         # each world's limit, spawn to exit
 LBFGS_ITERS = 3
 MICRO = 2
 CASES = {"plate": (plate_hole, {}), "wave": (wave_confined, {})}
 ANALYTIC = dict(bc="analytic", fourier=8, fourier_scale=2.0)
+# The inverse problem on the plane P-wave frames of tests/test_torch_inverse.py.
+INVERSE = dict(scale=0.002, n_sensor_frames=3, sensors_per_frame=30,
+               pad_to_multiple_of=8)
+ACCELS = (0.0, 2.0)
+CONFINED_BOX = ((-15.0, -15.0, 0.0), (15.0, 15.0, 14.0))
+N_CANDIDATES = 64
 
 
 def _mlp(rng, dims):
@@ -184,6 +197,68 @@ def _world_computations(shard, host, size):
     return out
 
 
+def _inverse_problem(host, accel):
+    return inverse.build(dtype=F64, fem_dir=host["fem_dir"], device="cpu",
+                         accel_weight=accel, **INVERSE)
+
+
+def _doubled(banks):
+    """Every bank padded at its tail by its own length: the second half
+    of the rows is padding, so the last rank holds padding only."""
+    return {k: _pad_tail(b, b.n_total) for k, b in banks.items()}
+
+
+def _refine_bank(case):
+    """The collocation bank with padding at its tail (the last ranks hold
+    some or only padding), and two k: padding slots only, and every
+    padding slot plus real points of several ranks."""
+    bank = _pad_tail(case.banks["collocation"], 40)
+    n_pad = int((bank.mask == 0).sum())
+    return bank, (n_pad // 2 + 3, n_pad + 16)
+
+
+def _repair_computations(shard, host):
+    """The inverse problem's loss and gradients over ``shard``-placed
+    banks doubled with padding, and ``topk_refine`` over a placed bank
+    followed by one loss over the refined bank and the other placed
+    banks; with each one's collectives."""
+    out = {}
+    for accel in ACCELS:
+        prob, banks = _inverse_problem(host, accel)
+        placed = shard(_doubled(banks))
+        params = params_from_jax(host["inverse"], device="cpu", dtype=F64)
+        pmesh.reset_collectives()
+        (loss, comps), grads = value_and_grad(
+            lambda p: prob.loss_and_aux(p, placed), params, has_aux=True)
+        out[f"inverse{accel}"] = dict(
+            loss=float(loss), comps={k: float(v) for k, v in comps.items()},
+            grads=_flat(grads), collectives=dict(pmesh.COLLECTIVES),
+            valid=float(placed["sensors"].mask.sum()))
+
+    case = _build("wave", 8)
+    params = params_from_jax(host["wave"], device="cpu", dtype=F64)
+    bank, ks = _refine_bank(case)
+    placed = shard({"collocation": bank})["collocation"]
+    cands = _candidates()
+    for k in ks:
+        pmesh.reset_collectives()
+        new, info = topk_refine(case.model, params, case.material, case.plane,
+                                placed, cands, k)
+        res = dict(xyt=new.xyt.numpy(), mask=new.mask.numpy(), info=info,
+                   mesh_kept=new.mesh is placed.mesh,
+                   collectives=dict(pmesh.COLLECTIVES))
+        banks = dict(shard(case.banks), collocation=new)
+        res["loss"] = _value_and_grad(case, params, banks)
+        out[f"topk{k}"] = res
+    return out
+
+
+def _candidates():
+    lo, hi = (np.asarray(b) for b in CONFINED_BOX)
+    return lo + (hi - lo) * np.random.default_rng(16).uniform(
+        size=(N_CANDIDATES, 3))
+
+
 # ---------------------------------------------------------------------------
 # One rank of a spawned world.
 
@@ -263,59 +338,57 @@ def _rank_results(mesh, host):
     out["results"] = {**_computations(shard, host),
                       **_world_computations(shard, host, mesh.size)}
     out["collectives_total"] = dict(pmesh.COLLECTIVES)
+    out["repair"] = _repair_computations(shard, host)
     out["jax_loaded_after"] = "jax" in sys.modules
     return out
 
 
-def _rank_main(rank, size, root):
-    torch.set_num_threads(1)
-    with open(os.path.join(root, "host.pkl"), "rb") as f:
-        host = pickle.load(f)
-    store = dist.FileStore(os.path.join(root, "store"), size)
-    dist.init_process_group("gloo", store=store, rank=rank, world_size=size,
-                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    try:
-        out = _rank_results(pmesh.make_mesh(device="cpu"), host)
-    finally:
-        dist.destroy_process_group()
-    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
-
-
 # ---------------------------------------------------------------------------
-# Fixtures: spawn both worlds, compute the references meanwhile, join.
+# Fixtures: spawn both worlds, compute the references meanwhile.
+
+def plane_p_wave(x, t):
+    """u = A·sin(k(x − c_p·t)), v = 0 with lambda = G = 1, c_p² = 3 (the
+    confined case's equations at E = 2.5, rho = 1, nu = 0.25)."""
+    amp, k, c_p = 0.01, 0.5, np.sqrt(3.0)
+    ph = k * (x - c_p * t)
+    c = amp * k * np.cos(ph)
+    zero = np.zeros_like(x)
+    return {"u": amp * np.sin(ph), "v": zero, "s11": 3.0 * c, "s22": c,
+            "s12": zero}
+
 
 @pytest.fixture(scope="module")
-def host():
+def host(tmp_path_factory):
+    """Seeded numpy parameters, and the directory of the inverse problem's
+    frames 0-56 of the plane wave at 400 probes."""
+    fem_dir = str(tmp_path_factory.mktemp("fem"))
+    xy = np.random.default_rng(21).uniform(0.0, 30.0, (400, 2))
+    for i in range(57):
+        f = plane_p_wave(xy[:, 0] - 15.0, i * 14.0 / 56)
+        data = {"x": xy[:, :1], "y": xy[:, 1:]}
+        data.update({k: v[:, None] for k, v in f.items()})
+        scipy.io.savemat(os.path.join(fem_dir, f"ProbeData-{i}.mat"), data)
     rng = np.random.default_rng(15)
-    return {
+    out = {
         "plate": _host_params(plate_hole.build_model(), rng),
         "wave": _host_params(wave_confined.build_model(), rng),
         "analytic": _host_params(plate_hole.build_model(**ANALYTIC), rng),
+        "fem_dir": fem_dir,
     }
+    out["inverse"] = {"net": _mlp(rng, [3] + [140] * 6 + [7]),
+                      "log_E": np.log(1.7), "log_rho": np.log(0.8)}
+    return out
 
 
 @pytest.fixture(scope="module")
-def _spawned(host, tmp_path_factory):
-    ctx = multiprocessing.get_context("spawn")
-    procs = {}
-    for size in WORLDS:
-        root = str(tmp_path_factory.mktemp(f"world{size}"))
-        # The parameters go through a file: a large argument would hold
-        # each start() until the rank has imported this module.
-        with open(os.path.join(root, "host.pkl"), "wb") as f:
-            pickle.dump(host, f)
-        procs[size] = (root, [ctx.Process(target=_rank_main,
-                                          args=(r, size, root))
-                              for r in range(size)])
-        for p in procs[size][1]:
-            p.start()
-    yield procs
-    for _, ps in procs.values():
-        for p in ps:
-            if p.is_alive():
-                p.terminate()
-                p.join(5)
+def _spawned(host):
+    """size -> the future of that world's results; both worlds run while
+    the parent computes the references."""
+    with concurrent.futures.ThreadPoolExecutor(len(WORLDS)) as pool:
+        yield {size: pool.submit(launch.run_world, _rank_results, size,
+                                 device="cpu", timeout_s=TIMEOUT_S,
+                                 payload=host)
+               for size in WORLDS}
 
 
 @pytest.fixture(scope="module")
@@ -331,6 +404,7 @@ def single(_spawned, _one_thread, host):
     """The port's single process, per world's padding; ``full`` is the
     full-batch loss of the microbatched one's banks."""
     base = _computations(lambda b: b, host)
+    base["repair"] = _repair_computations(lambda b: b, host)
     out = {}
     for size in WORLDS:
         case = _build("wave", MICRO * size)
@@ -367,24 +441,54 @@ def jax_refs(_spawned, host):
         out[name] = dict(loss=float(loss),
                          grads=np.asarray(ravel_pytree(grads)[0]),
                          mesh8=float(sharded))
+    out.update(_jax_repair_refs(host))
+    return out
+
+
+def _jax_repair_refs(host):
+    """JAX: the inverse loss, components and gradients on the undoubled
+    banks, and ``topk_refine`` on the same padded bank."""
+    import jax
+    import jax.numpy as jnp
+    from jax.flatten_util import ravel_pytree
+
+    from pinn_elastodynamics_tpu.banks import PointBank as JBank
+    from pinn_elastodynamics_tpu.cases import inverse as jinv
+    from pinn_elastodynamics_tpu.cases import wave_confined as jconf
+    from pinn_elastodynamics_tpu.geometry import adaptive as jad
+
+    out = {}
+    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                          host["inverse"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jconf, "FEM_DIR", host["fem_dir"])
+        for accel in ACCELS:
+            prob, banks = jinv.build(dtype=np.float64, accel_weight=accel,
+                                     **INVERSE)
+            (loss, comps), grads = jax.value_and_grad(
+                lambda p: prob.loss_and_aux(p, banks), has_aux=True)(params)
+            out[f"inverse{accel}"] = dict(
+                loss=float(loss),
+                comps={k: float(v) for k, v in comps.items()},
+                grads=np.asarray(ravel_pytree(grads)[0]))
+
+    case = jconf.build(scale=SCALE, pad_to_multiple_of=8, dtype=np.float64)
+    wparams = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), host["wave"])
+    bank, ks = _refine_bank(_build("wave", 8))
+    jbank = JBank(xyt=jnp.asarray(bank.xyt.numpy()),
+                  mask=jnp.asarray(bank.mask.numpy()), values={})
+    for k in ks:
+        new, info = jad.topk_refine(case.model, wparams, case.material,
+                                    case.plane, jbank, _candidates(), k)
+        out[f"topk{k}"] = dict(xyt=np.asarray(new.xyt),
+                               mask=np.asarray(new.mask), info=info)
     return out
 
 
 @pytest.fixture(scope="module")
 def worlds(_spawned, single, jax_refs):
-    """size -> the ranks' results, once every rank exited 0."""
-    out = {}
-    for size, (root, procs) in _spawned.items():
-        for p in procs:
-            p.join(TIMEOUT_S)
-        codes = [p.exitcode for p in procs]
-        assert codes == [0] * size, f"world {size}: exit codes {codes}"
-        ranks = []
-        for r in range(size):
-            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
-                ranks.append(pickle.load(f))
-        out[size] = ranks
-    return out
+    """size -> the ranks' results, once every rank has returned."""
+    return {size: future.result() for size, future in _spawned.items()}
 
 
 def _same_on_every_rank(ranks, get):
@@ -556,7 +660,7 @@ def test_each_rank_evaluates_its_rows_and_reduces_once(worlds, size):
     value+grad."""
     banks = _build("plate", 8).banks
     for r in worlds[size]:
-        assert r["collectives"] == {"sums": 1, "grads": 1}
+        assert r["collectives"] == {"sums": 1, "grads": 1, "gathers": 0}
         assert r["rows"]
         for term, rows in r["rows"]:
             assert rows == banks[r["term_banks"][term]].n_total // size
@@ -565,7 +669,8 @@ def test_each_rank_evaluates_its_rows_and_reduces_once(worlds, size):
         # the mixed-precision and the microbatched value+grad.
         res = r["results"]
         n_vg = 3 + 2 + res["lbfgs"]["evals"] + 1 + 1 + res["analytic"]["evals"]
-        assert r["collectives_total"] == {"sums": n_vg, "grads": n_vg}
+        assert r["collectives_total"] == {"sums": n_vg, "grads": n_vg,
+                                          "gathers": 0}
 
 
 @pytest.mark.parametrize("size", WORLDS)
@@ -606,7 +711,157 @@ def test_mesh_of_one_rank_is_the_identity(host, _one_thread):
     params = params_from_jax(host["plate"], device="cpu", dtype=F64)
     pmesh.reset_collectives()
     got = _value_and_grad(case, params, pmesh.shard_banks(case.banks, mesh))
-    assert pmesh.COLLECTIVES == {"sums": 0, "grads": 0}
+    assert pmesh.COLLECTIVES == {"sums": 0, "grads": 0, "gathers": 0}
     ref = _value_and_grad(case, params, case.banks)
     assert got["loss"] == ref["loss"] and got["comps"] == ref["comps"]
     np.testing.assert_array_equal(got["grads"], ref["grads"])
+
+
+@pytest.mark.parametrize("size", WORLDS)
+@pytest.mark.parametrize("accel", ACCELS)
+def test_sharded_inverse_matches_single_process_and_jax(worlds, single,
+                                                        jax_refs, accel, size):
+    """The inverse problem's loss, components (E and rho too) and
+    gradients (log_E and log_rho too) over banks doubled with padding, so
+    the last rank holds only padding: the single process's and JAX's
+    within 1e-10 in float64, every rank the same bits, one reduction of
+    the sums and one of the gradient."""
+    key = f"inverse{accel}"
+    ranks = worlds[size]
+    ref, jref = single[size]["repair"][key], jax_refs[key]
+    assert ranks[-1]["repair"][key]["valid"] == 0.0
+    assert ranks[0]["repair"][key]["valid"] > 0.0
+    loss = _same_on_every_rank(ranks, lambda r: r["repair"][key]["loss"])
+    grads = _same_on_every_rank(ranks, lambda r: r["repair"][key]["grads"])
+    got = ranks[0]["repair"][key]
+    assert got["collectives"] == {"sums": 1, "grads": 1, "gathers": 0}
+    assert ref["collectives"] == {"sums": 0, "grads": 0, "gathers": 0}
+    assert ("DATA_TT" in got["comps"]) == bool(accel)
+    for want in (ref, jref):
+        assert loss == pytest.approx(want["loss"], rel=1e-10)
+        assert got["comps"].keys() == want["comps"].keys()
+        for k, v in want["comps"].items():
+            assert got["comps"][k] == pytest.approx(v, rel=1e-10), k
+    # ravel_pytree's order: log_E, log_rho, then the net, as tree_leaves.
+    for want in (ref["grads"], jref["grads"]):
+        scale = max(1.0, float(np.abs(want).max()))
+        assert float(np.abs(grads - want).max()) <= 1e-10 * scale
+    assert grads[0] != 0.0 and grads[1] != 0.0
+
+
+@pytest.mark.parametrize("size", WORLDS)
+def test_sharded_topk_refine_is_global(worlds, single, jax_refs, size):
+    """The refined shards concatenate to the single process's refined bank
+    bit for bit, and to JAX's ``topk_refine``: the ranking is global (one
+    gather), ties go to the lower global index, each rank writes its own
+    picked slots, and the bank keeps its mesh."""
+    bank, ks = _refine_bank(_build("wave", 8))
+    for k in ks:
+        key = f"topk{k}"
+        ref, jref = single[size]["repair"][key], jax_refs[key]
+        parts = [r["repair"][key] for r in worlds[size]]
+        xyt = np.concatenate([p["xyt"] for p in parts])
+        mask = np.concatenate([p["mask"] for p in parts])
+        for want in (ref, jref):
+            np.testing.assert_array_equal(xyt, want["xyt"])
+            np.testing.assert_array_equal(mask, want["mask"])
+        assert int((xyt != bank.xyt.numpy()).any(axis=1).sum()) == k
+        for p in parts:
+            assert p["mesh_kept"]
+            assert p["collectives"]["gathers"] == 1
+            assert p["info"] == ref["info"]
+            for name in ("cand_residual_mean", "evicted_residual_mean"):
+                assert p["info"][name] == pytest.approx(jref["info"][name],
+                                                        rel=1e-10)
+    assert ref["collectives"]["gathers"] == 0
+
+
+@pytest.mark.parametrize("size", WORLDS)
+def test_loss_over_refined_bank(worlds, single, size):
+    """One loss over the refined bank and the other sharded banks runs on
+    every rank and equals the single process's over the refined bank."""
+    _, ks = _refine_bank(_build("wave", 8))
+    for k in ks:
+        ref = single[size]["repair"][f"topk{k}"]["loss"]
+        ranks = worlds[size]
+        loss = _same_on_every_rank(
+            ranks, lambda r: r["repair"][f"topk{k}"]["loss"]["loss"])
+        grads = _same_on_every_rank(
+            ranks, lambda r: r["repair"][f"topk{k}"]["loss"]["grads"])
+        assert loss == pytest.approx(ref["loss"], rel=1e-12)
+        np.testing.assert_allclose(grads, ref["grads"], rtol=1e-10,
+                                   atol=1e-12)
+
+
+def test_host_engine_refuses_sharded_banks(host):
+    """The chunk-sum collector (the host float64 engine) runs on one
+    device: ``make_host_problem_vg`` and the inverse loss with a collector
+    refuse sharded banks before evaluating anything."""
+    prob, banks = _inverse_problem(host, 2.0)
+    params = params_from_jax(host["inverse"], device="cpu", dtype=F64)
+    sharded = pmesh.shard_banks(banks, pmesh.make_mesh(device="cpu"))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("evaluated")
+
+    model = dataclasses.replace(prob.model)
+    object.__setattr__(model, "jet", refuse)
+    blind = dataclasses.replace(prob, model=model)
+    with pytest.raises(ValueError, match="takes no sharded banks"):
+        make_host_problem_vg(blind, sharded, params)
+    with pytest.raises(ValueError, match="takes no sharded banks"):
+        blind.loss_and_aux(params, sharded, collector=ChunkSumCollector())
+    make_host_problem_vg(prob, banks, params)   # unsharded: taken
+
+
+def test_inverse_loss_without_mesh_divides_each_mean_as_before(host):
+    """Without a mesh the inverse loss is bitwise the sum, in the same
+    order, of each masked mean square taken on its own (the loss before it
+    became a sum and a count)."""
+    prob, banks = _inverse_problem(host, 2.0)
+    params = params_from_jax(host["inverse"], device="cpu", dtype=F64)
+    total, comps = prob.loss_and_aux(params, banks)
+
+    from pinn_elastodynamics_torch.ops import residuals as res_ops
+
+    spec, net = prob.model.spec, params["net"]
+    mat = prob.material(params)
+    col, sens = banks["collocation"], banks["sensors"]
+    res = res_ops.residuals(prob.model.jet(net, col.xyt), spec, mat,
+                            prob.plane)
+    sjet = prob.model.jet(net, sens.xyt, order=2)
+    mms = lambda r: masked_mean_square(r, sens.mask)
+    col_mms = lambda n: masked_mean_square(res[n], col.mask)
+    iu, iv = spec.index("u"), spec.index("v")
+    want = {
+        "f_uv": sum(col_mms(n) for n in res_ops.momentum_group(spec)),
+        "f_s": sum(col_mms(n) for n in res_ops.stress_group(spec)),
+        "DATA_TT": (mms(sjet.dtt[:, iu] - sens.values["att"][:, 0])
+                    + mms(sjet.dtt[:, iv] - sens.values["att"][:, 1])),
+        "DATA": (mms(sjet.f[:, iu] - sens.values["uv"][:, 0])
+                 + mms(sjet.f[:, iv] - sens.values["uv"][:, 1])),
+        "DATA_S": sum(mms(sjet.f[:, spec.index(ch)] - sens.values["s"][:, j])
+                      for j, ch in enumerate(("s11", "s22", "s12"))),
+    }
+    wmap = dict(prob.weights)
+    assert list(comps)[:5] == list(want)
+    assert float(total) == float(sum(wmap.get(k, 0.0) * v
+                                     for k, v in want.items()))
+    for k, v in want.items():
+        assert float(comps[k]) == float(v), k
+
+
+def test_topk_refine_on_a_mesh_of_one_is_unsharded(host):
+    """No process group: no gather, and bitwise the unsharded result."""
+    case = _build("wave", 8)
+    params = params_from_jax(host["wave"], device="cpu", dtype=F64)
+    bank, ks = _refine_bank(case)
+    mesh = pmesh.make_mesh(device="cpu")
+    args = (case.model, params, case.material, case.plane)
+    pmesh.reset_collectives()
+    new, info = topk_refine(*args, pmesh.shard_bank(bank, mesh),
+                            _candidates(), ks[1])
+    assert pmesh.COLLECTIVES["gathers"] == 0 and new.mesh is mesh
+    ref, ref_info = topk_refine(*args, bank, _candidates(), ks[1])
+    assert ref.mesh is None and info == ref_info
+    assert torch.equal(new.xyt, ref.xyt) and torch.equal(new.mask, ref.mask)
