@@ -145,9 +145,13 @@ use only), then, in order:
    analytic + Fourier8 plate, all at scale 0.002 padded to 2 x the world)
    over NCCL with one rank per card, and over gloo with two ranks sharing
    the card: the ranks bitwise equal, each piece against the same piece
-   run mesh-less here (losses and gradient norms within 1e-5 relative;
-   the L-BFGS losses of the gloo world within 1e-3), and the launches of
-   B4, B5, B1 and B3b as the pieces predict; then the inverse problem (B1,
+   run mesh-less here (losses and gradient norms within 1e-5 relative),
+   the mesh-less pieces against the plain float64 route (the first
+   value+grad of the Adam step, through B4 and B5, and of the analytic
+   segment, through B1 seeded and B3b 16 wide; the microbatched and
+   kernel pieces' losses and gradient norms: within 1e-5 relative,
+   gradients within 2e-4 scaled), and the launches of B4, B5, B1 and B3b
+   as the pieces predict; then the inverse problem (B1,
    B2) and ``topk_refine`` (B1; k = 4,096, one gather) over an NCCL world
    of one in this process, bitwise against mesh-less, both timed;
 
@@ -317,7 +321,6 @@ DRYRUN_PER_EVAL = {
     "kernel": {"fused_composite_jet": 1, "fused_composite_jet_bwd": 1},
     "analytic": {"fused_mlp_jet": 1, "fused_seed_jet_bwd": 1},
 }
-TOL_DRYRUN_LBFGS = 1e-3   # relative, 3 f32 L-BFGS iterations, half banks
 N_ENTRY_PROBES = 4_000    # probes of the inverse problem's frames
 ENTRY_REFINE_K = 4096
 ENTRY_RUNS = 5
@@ -340,13 +343,11 @@ def card_line(torch) -> str:
 
 
 def mlp_tree(rng, dims):
-    """Random tanh-MLP parameters in the JAX layout (numpy f32)."""
-    layers = []
-    for fi, fo in zip(dims[:-1], dims[1:]):
-        w = rng.standard_normal((fi, fo)) * np.sqrt(2.0 / (fi + fo))
-        b = 0.1 * rng.standard_normal(fo)
-        layers.append({"W": w.astype(np.float32), "b": b.astype(np.float32)})
-    return layers
+    """Random tanh-MLP parameters in the JAX layout (numpy f32), with
+    biases 0.1 times a standard normal."""
+    from pinn_elastodynamics_torch.train.checkpoint import numpy_mlp
+
+    return numpy_mlp(rng, dims, bias_scale=0.1)
 
 
 def plate_points(rng, n):
@@ -2179,13 +2180,6 @@ def counted_mesh_vg(torch, fn, sub, sync):
             dict(pmesh.COLLECTIVES))
 
 
-def flat_numpy(tree):
-    from pinn_elastodynamics_torch.utils.tree import tree_leaves
-
-    return np.concatenate([t.detach().reshape(-1).cpu().numpy()
-                           for t in tree_leaves(tree)])
-
-
 def mesh_rank(mesh, setup):
     """One rank of phase 20's gloo world (``run_world``): each
     configuration's value+grad on its shard, host-clock times, and
@@ -2198,6 +2192,7 @@ def mesh_rank(mesh, setup):
     from pinn_elastodynamics_torch.train import lbfgs
     from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
     from pinn_elastodynamics_torch.train.step import value_and_grad
+    from pinn_elastodynamics_torch.utils.tree import flat_numpy
 
     dev = mesh.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -2408,20 +2403,90 @@ def dryrun_launches_expected(res):
     return out
 
 
-def check_dryrun(label, ranks, ref, lbfgs_limit):
+def dryrun_plain_checks(torch, label, trees, pad, ref, dev):
+    """The mesh-less dry run (``ref``, banks padded to ``pad``) against the
+    plain float64 route on the same banks and parameters: the first
+    value+grad of the Adam step and of the analytic segment at the initial
+    parameters (B4 and B5; B1 seeded and B3b at Fourier8, 16 wide), and the
+    microbatched and kernel pieces' value+grads at the parameters after the
+    Adam step.  Losses and gradient norms within TOL_LOSS relative,
+    gradients within TOL_GRAD scaled.  With ``check_dryrun`` holding the
+    ranks to ``ref``, this holds the ranks' kernels to the plain version."""
+    from pinn_elastodynamics_torch import entry as tentry
+    from pinn_elastodynamics_torch.cases import plate_hole
+    from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+    from pinn_elastodynamics_torch.train.step import (
+        make_microbatched_loss_fn,
+        value_and_grad,
+    )
+    from pinn_elastodynamics_torch.utils.tree import tree_leaves, tree_map
+
+    rels = {}
+
+    def hold(key, got, want):
+        rels[key] = abs(got - want) / abs(want)
+        if not rels[key] <= TOL_LOSS:
+            raise AssertionError(f"{label}: {key} {got!r} against plain f64 "
+                                 f"{want!r}, rel {rels[key]:.2e}")
+
+    def first_vg(name, kw, tree):
+        """The kernel route's counted value+grad against plain f64."""
+        case = plate_hole.build(scale=tentry.SCALE, pad_to_multiple_of=pad,
+                                device=dev, **kw)
+        fn = lambda c: lambda p: c.loss.evaluate(c.model, p, c.material,
+                                                 c.banks)[0]
+        params = params_from_jax(tree, device=dev)
+        loss, grads, _, _ = counted_value_and_grad(
+            torch, f"{label}: {name} first value+grad, mesh-less", fn(case),
+            params, DRYRUN_PER_EVAL[name])
+        case64 = eager_f64_case(case)
+        loss64, grads64 = value_and_grad(fn(case64), to64(params))
+        hold(f"{name} loss", float(loss), float(loss64))
+        hold(f"{name} grad_norm", float(tentry.global_norm(grads)),
+             float(tentry.global_norm(grads64)))
+        rels[f"{name} grads scaled"] = check_grads(
+            f"{label} {name}", grads, grads64)[0]
+        return case64, float(loss64)
+
+    case64, loss64 = first_vg("adam", {}, trees["net_bc"])
+    hold("adam_loss", ref["adam_loss"], loss64)
+    first_vg("analytic", tentry.ANALYTIC, trees["analytic"])
+
+    # The parameters after the Adam step, from the mesh-less run, in f64.
+    p0 = to64(params_from_jax(trees["net_bc"], device=dev))
+    flat = iter(torch.split(
+        torch.as_tensor(ref["adam_params"], dtype=torch.float64, device=dev),
+        [t.numel() for t in tree_leaves(p0)]))
+    p1 = tree_map(lambda t: next(flat).view(t.shape), p0)
+    micro = make_microbatched_loss_fn(case64.model, case64.loss,
+                                      case64.material,
+                                      num_microbatches=tentry.MICROBATCHES)
+    (mval, _), mgrads = value_and_grad(lambda p: micro(p, case64.banks), p1,
+                                       has_aux=True)
+    hold("micro_loss", ref["micro_loss"], float(mval))
+    hold("micro_grad_norm", ref["micro_grad_norm"],
+         float(tentry.global_norm(mgrads)))
+    kval, kgrads = value_and_grad(
+        lambda p: case64.loss.evaluate(case64.model, p, case64.material,
+                                       case64.banks)[0], p1)
+    hold("kernel_loss", ref["kernel_loss"], float(kval))
+    hold("kernel_grad_norm", ref["kernel_grad_norm"],
+         float(tentry.global_norm(kgrads)))
+    log(f"  {label}, mesh-less against plain f64 at {pad} padding: "
+        f"{ {k: f'{v:.2e}' for k, v in rels.items()} }")
+
+
+def check_dryrun(label, ranks, ref):
     """A dry run's ranks against the same pieces run mesh-less in this
-    process: losses and gradient norms within TOL_LOSS relative (the
-    L-BFGS losses within ``lbfgs_limit``), launches as the pieces predict
-    on every rank and in the mesh-less run.  Returns the ranks' launches
-    summed."""
+    process: losses and gradient norms within TOL_LOSS relative, launches
+    as the pieces predict on every rank and in the mesh-less run.  Returns
+    the ranks' launches summed."""
     first = ranks[0]
     worst = {}
     for key in ("adam_loss", "lbfgs_loss", "micro_loss", "micro_grad_norm",
                 "kernel_loss", "kernel_grad_norm", "analytic_loss"):
         rel = abs(first[key] - ref[key]) / abs(ref[key])
-        limit = lbfgs_limit if key in ("lbfgs_loss", "analytic_loss") \
-            else TOL_LOSS
-        if not rel <= limit:
+        if not rel <= TOL_LOSS:
             raise AssertionError(f"{label}: {key} {first[key]!r} against "
                                  f"mesh-less {ref[key]!r}, rel {rel:.2e}")
         worst[key] = f"{rel:.2e}"
@@ -2454,8 +2519,8 @@ def entry_checks(torch, dev):
     """Phase 21: the framework's entry points.  (a) ``entry()`` on the
     card against the plain float64 forward; (b) ``dryrun_multichip`` over
     NCCL, one rank per card, and (c) over gloo with DRYRUN_GLOO_WORLD ranks
-    sharing the card, each against the same pieces run mesh-less here;
-    (d) the inverse problem and (e) ``topk_refine`` over an NCCL world of
+    sharing the card, each against the same pieces run mesh-less here,
+    which are held against the plain float64 route; (d) the inverse problem and (e) ``topk_refine`` over an NCCL world of
     one in this process against mesh-less.  Returns the kernel launches of
     the counted runs."""
     import datetime
@@ -2497,8 +2562,8 @@ def entry_checks(torch, dev):
         ref = tentry.dryrun_pieces(trees, 2 * n, dev)
         log(f"  {label}: {wall:.2f} s from spawn to exit, cards "
             f"{[r['card'] for r in ranks]}, ranks bitwise equal")
-        limit = TOL_LOSS if backend is None and n == 1 else TOL_DRYRUN_LBFGS
-        total = add_launches(total, check_dryrun(label, ranks, ref, limit))
+        dryrun_plain_checks(torch, label, trees, 2 * n, ref, dev)
+        total = add_launches(total, check_dryrun(label, ranks, ref))
 
     # (d), (e) An NCCL world of one in this process.
     rng = np.random.default_rng(SEED + 21)

@@ -31,7 +31,6 @@ and the collectives made.
 from __future__ import annotations
 
 import argparse
-import math
 import time
 
 import numpy as np
@@ -42,7 +41,8 @@ from .cases import plate_hole
 from .device import resolve_device
 from .parallel import mesh as pmesh
 from .parallel.launch import run_world
-from .utils.tree import tree_leaves
+from .train.checkpoint import numpy_mlp
+from .utils.tree import flat_numpy, tree_leaves
 
 SCALE = 0.002
 ADAM_LR = 1e-3
@@ -71,39 +71,26 @@ def entry(device="cuda"):
     return forward, (params, xyt)
 
 
-def _mlp(rng, dims):
-    """Xavier-normal weights and zero biases, JAX layout, float32."""
-    return [{"W": (rng.standard_normal((i, o)) * math.sqrt(2.0 / (i + o))
-                   ).astype(np.float32),
-             "b": np.zeros(o, np.float32)}
-            for i, o in zip(dims[:-1], dims[1:])]
-
-
 def seeded_trees(seed: int = 0) -> dict:
-    """Parameters (JAX layout, numpy) of the dry run's two models, from a
-    numpy seed: ``net_bc`` (uv, dist, part) and ``analytic`` (the uv net's
-    Fourier matrix ``B`` and MLP)."""
+    """Parameters (JAX layout, numpy f32; Xavier weights, zero biases) of
+    the dry run's two models, from a numpy seed: ``net_bc`` (uv, dist,
+    part) and ``analytic`` (the uv net's Fourier matrix ``B`` and MLP)."""
     rng = np.random.default_rng(seed)
     net = plate_hole.build_model()
     uv = plate_hole.build_model(**ANALYTIC).uv_model
     b = uv.feature_scale * rng.standard_normal((uv.spec.n_inputs,
                                                 uv.n_features))
     return {
-        "net_bc": {k: _mlp(rng, getattr(net, f"{k}_net").layers)
+        "net_bc": {k: numpy_mlp(rng, getattr(net, f"{k}_net").layers)
                    for k in ("uv", "dist", "part")},
         "analytic": {"uv": {"B": b.astype(np.float32),
-                            "mlp": _mlp(rng, uv.layers)}},
+                            "mlp": numpy_mlp(rng, uv.layers)}},
     }
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares (``optax.global_norm``)."""
     return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(tree)))
-
-
-def _flat(tree) -> np.ndarray:
-    return np.concatenate([t.detach().reshape(-1).cpu().numpy()
-                           for t in tree_leaves(tree)])
 
 
 def dryrun_pieces(trees, pad: int, device, mesh=None) -> dict:
@@ -151,7 +138,7 @@ def dryrun_pieces(trees, pad: int, device, mesh=None) -> dict:
 
         res = lbfgs.minimize(loss, params, maxiter=LBFGS_ITERS,
                              segment=LBFGS_ITERS)
-        return float(res.final_loss), _flat(res.params), len(evals)
+        return float(res.final_loss), flat_numpy(res.params), len(evals)
 
     # 1. One Adam step, then an L-BFGS segment, over the sharded banks.
     case = plate_hole.build(scale=SCALE, pad_to_multiple_of=pad, device=dev)
@@ -164,7 +151,7 @@ def dryrun_pieces(trees, pad: int, device, mesh=None) -> dict:
         "adam", lambda: step(params, state, banks))
     out["adam_loss"] = float(loss)
     out["components"] = {k: float(v) for k, v in sorted(comps.items())}
-    out["adam_params"] = _flat(params)
+    out["adam_params"] = flat_numpy(params)
     (out["lbfgs_loss"], out["lbfgs_params"],
      out["lbfgs_evals"]) = piece("lbfgs", lambda: segment(case, banks, params))
 

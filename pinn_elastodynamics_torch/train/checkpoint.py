@@ -13,8 +13,9 @@ Counterpart of ``pinn_elastodynamics_tpu/train/checkpoint.py``:
 
 :func:`params_from_jax` turns a JAX parameter tree held as numpy arrays
 (nested dicts and lists of ``{"W", "b"}``, ``{"B", "mlp"}`` for Fourier
-nets) into the port's tensors on a device.  Unpickling runs code from the
-file, so load only checkpoints this project wrote.
+nets) into the port's tensors on a device, and :func:`numpy_mlp` makes such
+a tree from a numpy seed.  Unpickling runs code from the file, so load only
+checkpoints this project wrote.
 """
 
 from __future__ import annotations
@@ -118,6 +119,21 @@ def params_from_jax(tree, *, device="cuda", dtype=torch.float32):
         return torch.tensor(arr, dtype=dtype, device=dev)
 
     return conv(tree)
+
+
+def numpy_mlp(rng, dims, *, bias_scale=0.0, dtype=np.float32) -> list:
+    """Seeded tanh-MLP parameters in the JAX layout (numpy): Xavier-normal
+    weights, and biases ``bias_scale`` times a standard normal (zeros, with
+    no draw, at 0, as the models' own init).  Drawn layer by layer, each
+    weight before its bias, from ``rng`` (``numpy.random.Generator``);
+    ``dtype=None`` keeps float64."""
+    layers = []
+    for i, o in zip(dims[:-1], dims[1:]):
+        w = rng.standard_normal((i, o)) * np.sqrt(2.0 / (i + o))
+        b = bias_scale * rng.standard_normal(o) if bias_scale else np.zeros(o)
+        layers.append({"W": w if dtype is None else w.astype(dtype),
+                       "b": b if dtype is None else b.astype(dtype)})
+    return layers
 
 
 def load_reference_pickle(path: str, *, device="cuda",

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Callable, List, Tuple
 
+import numpy as np
+
 
 def tree_leaves(tree) -> List:
     """The leaves of ``tree`` in a fixed order."""
@@ -41,3 +43,10 @@ def tree_leaves_with_path(tree, path: str = "") -> List[Tuple[str, object]]:
         return [x for i, t in enumerate(tree)
                 for x in tree_leaves_with_path(t, f"{path}[{i}]")]
     return [(path, tree)]
+
+
+def flat_numpy(tree) -> np.ndarray:
+    """Every leaf of a tree of tensors, flattened and concatenated in the
+    order of :func:`tree_leaves`, as one numpy array on the host."""
+    return np.concatenate([t.detach().reshape(-1).cpu().numpy()
+                           for t in tree_leaves(tree)])

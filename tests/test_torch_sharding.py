@@ -38,7 +38,10 @@ from pinn_elastodynamics_torch.parallel import launch
 from pinn_elastodynamics_torch.parallel import mesh as pmesh
 from pinn_elastodynamics_torch.train import lbfgs
 from pinn_elastodynamics_torch.train.adam import Adam
-from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
+from pinn_elastodynamics_torch.train.checkpoint import (
+    numpy_mlp,
+    params_from_jax,
+)
 from pinn_elastodynamics_torch.train.lbfgs_host import make_host_problem_vg
 from pinn_elastodynamics_torch.train.step import (
     make_grad_step,
@@ -46,7 +49,7 @@ from pinn_elastodynamics_torch.train.step import (
     make_microbatched_loss_fn,
     value_and_grad,
 )
-from pinn_elastodynamics_torch.utils.tree import tree_leaves
+from pinn_elastodynamics_torch.utils.tree import flat_numpy, tree_leaves
 
 F64 = torch.float64
 SCALE = 0.002
@@ -65,9 +68,7 @@ N_CANDIDATES = 64
 
 
 def _mlp(rng, dims):
-    return [{"W": rng.standard_normal((i, o)) * np.sqrt(2.0 / (i + o)),
-             "b": 0.1 * rng.standard_normal(o)}
-            for i, o in zip(dims[:-1], dims[1:])]
+    return numpy_mlp(rng, dims, bias_scale=0.1, dtype=None)
 
 
 def _host_params(model, rng):
@@ -88,11 +89,6 @@ def _build(name, pad, **kw):
     mod, base = CASES[name]
     return mod.build(scale=SCALE, pad_to_multiple_of=pad, dtype=F64,
                      device="cpu", **base, **kw)
-
-
-def _flat(tree):
-    return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)]
-                     ).numpy()
 
 
 def _pad_tail(bank: PointBank, extra: int) -> PointBank:
@@ -116,7 +112,7 @@ def _value_and_grad(case, params, banks, fn=None):
     fn = fn or make_loss_fn(case.model, case.loss, case.material)
     (loss, comps), grads = value_and_grad(lambda p: fn(p, banks), params,
                                           has_aux=True)
-    return dict(loss=float(loss), grads=_flat(grads),
+    return dict(loss=float(loss), grads=flat_numpy(grads),
                 comps={k: float(v) for k, v in comps.items()})
 
 
@@ -131,7 +127,7 @@ def _lbfgs(case, params, banks):
     res = lbfgs.minimize(fn, params, maxiter=LBFGS_ITERS,
                          segment=LBFGS_ITERS)
     return dict(loss=float(res.final_loss), evals=len(evals),
-                iters=res.n_iters, params=_flat(res.params))
+                iters=res.n_iters, params=flat_numpy(res.params))
 
 
 def _adam(case, params, banks):
@@ -143,7 +139,7 @@ def _adam(case, params, banks):
         params, state, loss, comps = step(params, state, banks)
         out["losses"].append(float(loss))
         out["comps"].append(sorted(comps))
-    out["params"] = _flat(params)
+    out["params"] = flat_numpy(params)
     out["count"] = state["count"]
     return out
 
@@ -177,7 +173,8 @@ def _mixed(shard, host):
     params = params_from_jax(host["plate"], device="cpu", dtype=F64)
     fn, sub, _ = mixed_precision_phase_fn(case, case.phases[-1], params)
     loss, grads = value_and_grad(fn, sub)
-    return dict(loss=float(loss), dtype=str(loss.dtype), grads=_flat(grads))
+    return dict(loss=float(loss), dtype=str(loss.dtype),
+                grads=flat_numpy(grads))
 
 
 def _world_computations(shard, host, size):
@@ -232,7 +229,7 @@ def _repair_computations(shard, host):
             lambda p: prob.loss_and_aux(p, placed), params, has_aux=True)
         out[f"inverse{accel}"] = dict(
             loss=float(loss), comps={k: float(v) for k, v in comps.items()},
-            grads=_flat(grads), collectives=dict(pmesh.COLLECTIVES),
+            grads=flat_numpy(grads), collectives=dict(pmesh.COLLECTIVES),
             valid=float(placed["sensors"].mask.sum()))
 
     case = _build("wave", 8)
