@@ -154,6 +154,13 @@ use only), then, in order:
    as the pieces predict; then the inverse problem (B1,
    B2) and ``topk_refine`` (B1; k = 4,096, one gather) over an NCCL world
    of one in this process, bitwise against mesh-less, both timed;
+22. the port's benchmark (``python -m pinn_elastodynamics_torch.bench``)
+   at its defaults, nothing cut, in a subprocess: exit 0, one JSON line
+   with ``"correct": true`` (its own check of the full-loss and uv-phase
+   value+grads against eager float64 and of the one-launch composite
+   forward against the three-launch path), the card's name, every
+   measurement, one B4 and one B5 launch per checked value+grad, three B1
+   on the three-launch path, and 0 < mfu <= 1.05; the line is printed;
 
 and prints one JSON line describing the kernels, then, only if every phase
 passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -172,6 +179,9 @@ import urllib.request
 
 import numpy as np
 
+from pinn_elastodynamics_torch.utils.profiling import (
+    F32_PEAK_FLOPS, HBM_BYTES_PER_S, bwd_flops_per_point, flops_per_point)
+
 SEED = 20261017
 N_BIG = 65536
 N_RAGGED = 1000
@@ -179,8 +189,6 @@ TOL_FD = 1e-5     # max|err| / max(1, max|ref|) on f and d
 TOL_DTT = 5e-5    # the same on dtt
 T_SERVE = 2.5
 REQUEST_SIZES = (1, 8192, 100_000)
-F32_PEAK_FLOPS = 67e12   # H100 SXM, f32 on the CUDA cores (dense)
-HBM_BYTES_PER_S = 3.35e12
 FOURIER = 64
 FOURIER_SCALE = 2.0
 TOL_GRAD = 2e-4   # max|err| / max(1, max|ref|): tests/test_fused_vjp.py
@@ -325,6 +333,27 @@ N_ENTRY_PROBES = 4_000    # probes of the inverse problem's frames
 ENTRY_REFINE_K = 4096
 ENTRY_RUNS = 5
 
+# Phase 22: the bench at its defaults.  The kernel launches of each call
+# its correctness check counts (every other kernel 0): one B4 and one B5
+# per value+grad (the hole bank's traction takes the plain forward), one
+# B4 for the one-launch composite forward, three B1 for the three-launch
+# path.
+BENCH_ARGS = ()
+BENCH_TIMEOUT_S = 600
+BENCH_LAUNCHES = {
+    "full_value_and_grad": {"fused_composite_jet": 1,
+                            "fused_composite_jet_bwd": 1},
+    "uv_phase_value_and_grad": {"fused_composite_jet": 1,
+                                "fused_composite_jet_bwd": 1},
+    "one_launch_forward": {"fused_composite_jet": 1},
+    "three_launch_forward": {"fused_mlp_jet": 3},
+}
+BENCH_MEASURED = ("value", "mfu", "uv_phase_evals_per_sec",
+                  "composite_fwd_evals_per_sec", "lbfgs_iters_per_sec",
+                  "lbfgs_iters_per_sec_cold", "cpu_evals_per_sec",
+                  "seconds_to_target")
+MFU_MAX = 1.05
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -439,10 +468,6 @@ def check_jet(label, ker, ref):
     return worst
 
 
-def flops_per_point(dims, n_streams):
-    return 2 * n_streams * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-
-
 def time_cuda(torch, fn, warmup=3, runs=20):
     """Median milliseconds of ``fn`` by CUDA events."""
     return float(np.median(cuda_times(torch, fn, warmup, runs)))
@@ -505,18 +530,6 @@ def device_breakdown(torch, fn, top=4):
         rows.append((us * 1e-6, evt.count, evt.key))
     rows.sort(reverse=True)
     return wall, sum(r[0] for r in rows), rows[:top]
-
-
-def bwd_flops_per_point(dims, n_streams):
-    """FLOPs per point that the backward of one MLP jet needs: per hidden
-    layer the forward once (2S per weight), the weight gradient and the
-    input cotangent (2S each); the head's weight gradient and input
-    cotangent.  The kernel's recompute of the non-value pre-activations in
-    the reverse sweep saves memory, not work the function needs, so it is
-    not counted."""
-    s = n_streams
-    widths = [a * b for a, b in zip(dims[:-1], dims[1:])]
-    return 6 * s * sum(widths[:-1]) + 4 * s * widths[-1]
 
 
 def max_scaled(got, ref):
@@ -2660,6 +2673,59 @@ def entry_checks(torch, dev):
     torch.cuda.empty_cache()
     return total
 
+def bench_checks(torch):
+    """Phase 22: ``python -m pinn_elastodynamics_torch.bench`` at its
+    defaults (BENCH_ARGS; nothing cut) in a subprocess, which loads the
+    library this process built.  It must exit 0 and print one JSON line
+    with ``"correct": true``, the card's name, every measurement in
+    BENCH_MEASURED, the launches BENCH_LAUNCHES of each checked call, B1,
+    B4 and B5 launched in its measurements, and 0 < mfu <= 1.05.  Returns
+    all the launches it made."""
+    import os
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "pinn_elastodynamics_torch.bench",
+         *BENCH_ARGS],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    printed = proc.stdout.strip().splitlines()
+    log(f"  bench line: {printed[-1]}")
+    line = json.loads(printed[-1])
+    if len(printed) != 1 or line["correct"] is not True:
+        raise AssertionError(f"bench printed {len(printed)} lines, correct "
+                             f"{line['correct']!r}")
+    if line["device"]["name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench ran on {line['device']}")
+    missing = [k for k in BENCH_MEASURED if line[k] is None]
+    if missing:
+        raise AssertionError(f"bench measured no {missing}")
+    launches = line["launches"]
+    for call, want in BENCH_LAUNCHES.items():
+        want = {**dict.fromkeys(launches[call], 0), **want}
+        if launches[call] != want:
+            raise AssertionError(f"bench {call}: launches {launches[call]} "
+                                 f"!= {want}")
+    for name in ("fused_mlp_jet", "fused_composite_jet",
+                 "fused_composite_jet_bwd"):
+        if launches["measurements"][name] < 1:
+            raise AssertionError(f"bench measurements did not launch {name}")
+    if not 0 < line["mfu"] <= MFU_MAX:
+        raise AssertionError(f"bench mfu {line['mfu']} outside (0, {MFU_MAX}]")
+    log(f"  bench: {line['value']:.1f} evals/s, mfu {line['mfu']:.4f}, "
+        f"uv phase {line['uv_phase_evals_per_sec']:.1f} evals/s, L-BFGS "
+        f"{line['lbfgs_iters_per_sec']:.3f} it/s (cold "
+        f"{line['lbfgs_iters_per_sec_cold']:.3f}), seconds to target "
+        f"{line['seconds_to_target']:.3f} (hit {line['target_hit']}, "
+        f"{line['target_iters']} iterations)")
+    total = None
+    for counts in launches.values():
+        total = add_launches(total, counts)
+    return total
+
+
 def eager_copy(model):
     """The same model with every jet on the plain (eager) path."""
     if hasattr(model, "uv_model"):  # closed-form composite
@@ -3053,12 +3119,19 @@ def main() -> int:
         if entry_launches[name] < 1:
             raise AssertionError(f"phase entry did not launch {name}")
     log(f"phase entry: {time.perf_counter() - t0:.2f} s")
+
+    # 22. The port's benchmark entry point.
+    t0 = time.perf_counter()
+    bench_launches = bench_checks(torch)
+    log(f"  launches of the bench: {bench_launches}")
+    log(f"phase bench: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         k["launches"] += sum(counts[k["name"]] for counts in (
             lbfgs_launches, pipe_launches, wave_launches,
             curriculum_launches, million_launches, endgame_launches,
             elastic3d_launches, fem_launches, inverse_launches,
-            adaptive_launches, mesh_launches, entry_launches))
+            adaptive_launches, mesh_launches, entry_launches,
+            bench_launches))
         if k["name"] in inverse_times:
             k.update(inverse_times[k["name"]])
             k["max_abs_err"] = max(k["max_abs_err"],

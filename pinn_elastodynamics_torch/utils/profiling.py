@@ -19,6 +19,13 @@ import torch
 
 from .tree import tree_leaves
 
+# One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
+# float32 outside the tensor cores, which the exact-f32 FFMA kernels run on,
+# and the HBM3 rate.  The denominators of every bound and utilisation the
+# port reports.
+F32_PEAK_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
 
 def _block(out) -> None:
     """Wait for the CUDA work behind ``out`` (a tensor or a tree of them);
@@ -92,3 +99,20 @@ def flops_estimate_mlp_jet(
         fwd += 2 * fan_in * fan_out * streams
     total = fwd * (3 if with_grad else 1)  # backward ≈ 2x forward
     return n_points * total
+
+
+def flops_per_point(dims, n_streams: int) -> int:
+    """FLOPs per point of one MLP jet forward: 2 per weight per stream."""
+    return 2 * n_streams * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def bwd_flops_per_point(dims, n_streams: int) -> int:
+    """FLOPs per point that the backward of one MLP jet needs: per hidden
+    layer the forward once (2S per weight), the weight gradient and the
+    input cotangent (2S each); the head's weight gradient and input
+    cotangent.  The kernel's recompute of the non-value pre-activations in
+    the reverse sweep saves memory, not work the function needs, so it is
+    not counted."""
+    s = n_streams
+    widths = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    return 6 * s * sum(widths[:-1]) + 4 * s * widths[-1]
