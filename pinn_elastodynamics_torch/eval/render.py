@@ -15,6 +15,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.residuals import strains_2d
+from ..utils.profiling import span
 
 
 @torch.no_grad()
@@ -36,7 +37,11 @@ def predict_fields(
 
     ``params`` must live on ``device`` in ``dtype``.  Points are padded to
     whole chunks of ``chunk`` rows (the padding rows are dropped from the
-    result), so every chunk has one shape.
+    result), so every chunk has one shape.  Spans: ``render.chunk`` (its
+    real ``rows`` and its ``pad``) around ``render.h2d`` (padding and the
+    copy to the device), ``render.jet`` (the forward's enqueue) and
+    ``render.d2h`` (the fields' copies back, the first of which waits for
+    the forward); then ``render.merge``.
     """
     dev = resolve_device(device)
     tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
@@ -47,13 +52,19 @@ def predict_fields(
     for start in range(0, n, chunk):
         block = pts[start : start + chunk]
         pad = chunk - block.shape[0]
-        if pad:
-            block = np.pad(block, ((0, pad), (0, 0)))
-        xyt = torch.as_tensor(block, dtype=tdtype, device=dev)
-        res = _predict_chunk(model, params, xyt)
-        outs.append({k: v[: chunk - pad].cpu().numpy() for k, v in res.items()})
-    merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
-    merged["amp"] = np.sqrt(merged["u"] ** 2 + merged["v"] ** 2)
+        with span("render.chunk", rows=block.shape[0], pad=pad):
+            with span("render.h2d"):
+                if pad:
+                    block = np.pad(block, ((0, pad), (0, 0)))
+                xyt = torch.as_tensor(block, dtype=tdtype, device=dev)
+            with span("render.jet"):
+                res = _predict_chunk(model, params, xyt)
+            with span("render.d2h"):
+                outs.append({k: v[: chunk - pad].cpu().numpy()
+                             for k, v in res.items()})
+    with span("render.merge"):
+        merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+        merged["amp"] = np.sqrt(merged["u"] ** 2 + merged["v"] ** 2)
     return merged
 
 

@@ -24,6 +24,7 @@ import torch
 
 from .device import resolve_device
 from .eval.render import predict_fields
+from .utils.profiling import span
 
 
 def _params_to(tree, device, dtype):
@@ -59,21 +60,25 @@ class FieldEvaluator:
         self, xy: np.ndarray, t: float,
         fields: Optional[Sequence[str]] = None,
     ) -> Dict[str, np.ndarray]:
+        """Every field at the points ``xy`` (N, ndim) and time ``t``, or
+        the ``fields`` named.  One request: a ``serve.evaluate`` span with
+        its ``points``, whose id every span under it carries as its root."""
         xy = np.asarray(xy, self.dtype)
         if xy.ndim != 2 or xy.shape[1] != self.model.spec.ndim:
             raise ValueError(
                 f"points must be (N, {self.model.spec.ndim}), got {xy.shape}"
             )
-        with self._lock:  # one device; serialize requests
-            out = predict_fields(
-                self.model, self.params, xy, float(t),
-                chunk=self.chunk, dtype=self.dtype, device=self.device,
-            )
-        if fields:
-            unknown = set(fields) - set(out)
-            if unknown:
-                raise KeyError(f"unknown fields: {sorted(unknown)}")
-            out = {k: out[k] for k in fields}
+        with span("serve.evaluate", points=xy.shape[0]):
+            with self._lock:  # one device; serialize requests
+                out = predict_fields(
+                    self.model, self.params, xy, float(t),
+                    chunk=self.chunk, dtype=self.dtype, device=self.device,
+                )
+            if fields:
+                unknown = set(fields) - set(out)
+                if unknown:
+                    raise KeyError(f"unknown fields: {sorted(unknown)}")
+                out = {k: out[k] for k in fields}
         return out
 
     @property

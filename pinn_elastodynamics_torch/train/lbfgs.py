@@ -25,6 +25,8 @@ the iteration's ``done`` flag.  The value and gradient at the accepted
 point are reused by the next iteration, so an iteration costs exactly as
 many value+grads as its line search tries; a fresh run also reuses its seed
 evaluation for the first iteration (the JAX loop evaluates there again).
+While a profiler records, spans (``utils/profiling.py::span``) mark each
+call, iteration, direction, line-search trial and host read.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves, tree_map
 from .step import value_and_grad
 
@@ -317,13 +320,16 @@ class _LineSearch:
         """Step until done or failed; returns the number of evaluations.
         The host reads the three flags once per step."""
         while True:
-            step = (self._zoom_into_interval if self.interval_found
-                    else self._search_interval)
-            found, done, failed = torch.stack(step()).tolist()
-            self.count += 1
-            self.interval_found = found
-            if failed:
-                self._try_safe_step()
+            with span("lbfgs.trial"):
+                step = (self._zoom_into_interval if self.interval_found
+                        else self._search_interval)
+                flags = torch.stack(step())
+                with span("lbfgs.read"):
+                    found, done, failed = flags.tolist()
+                self.count += 1
+                self.interval_found = found
+                if failed:
+                    self._try_safe_step()
             if done or failed:
                 return self.count
 
@@ -352,7 +358,9 @@ def _lbfgs_step(vg: Callable, x, state: dict, max_linesearch_steps: int):
     Returns the new point and state; the state holds the accepted point's
     value and gradient."""
     f, g = state["value"], state["grad"]
-    direction, lbfgs_state = _lbfgs_direction(g, state, x)
+    pairs = min(state["count"], state["weights_memory"].shape[0])
+    with span("lbfgs.direction", pairs=pairs):
+        direction, lbfgs_state = _lbfgs_direction(g, state, x)
     u = -1.0 * direction
     ls = _LineSearch(vg, x, u, f, g, max_linesearch_steps)
     n_steps = ls.run()
@@ -400,68 +408,77 @@ def minimize(
     curvature memory and the last value and gradient carry over, and the
     stop flags and the patience counter start afresh.
     """
-    seg_len = min(segment, max(1, maxiter))
-    if init_carry is not None:
-        params, opt_state, f0, _flat, _done = init_carry
-        layout = _Flat(params)
-        x = layout.flatten(params)
-        # A non-finite carried value is evaluated again, as optax's
-        # value_and_grad_from_state does.
-        if not bool(torch.isfinite(opt_state["value"])):
-            value, grad = value_and_grad(loss_fn, params)
-            opt_state = dict(opt_state, value=value, grad=layout.flatten(grad))
-    else:
-        layout = _Flat(params)
-        x = layout.flatten(params)
-        f0, g0 = value_and_grad(loss_fn, params)
-        opt_state = _init_opt_state(x, f0, layout.flatten(g0), memory_size)
-    flat = torch.zeros((), dtype=torch.int32, device=x.device)
-    done = torch.zeros((), dtype=torch.bool, device=x.device)
-    f_prev = torch.as_tensor(f0, device=x.device)
+    with span("lbfgs.minimize"):
+        seg_len = min(segment, max(1, maxiter))
+        if init_carry is not None:
+            params, opt_state, f0, _flat, _done = init_carry
+            layout = _Flat(params)
+            x = layout.flatten(params)
+            # A non-finite carried value is evaluated again, as optax's
+            # value_and_grad_from_state does.
+            with span("lbfgs.read"):
+                finite = bool(torch.isfinite(opt_state["value"]))
+            if not finite:
+                value, grad = value_and_grad(loss_fn, params)
+                opt_state = dict(opt_state, value=value,
+                                 grad=layout.flatten(grad))
+        else:
+            layout = _Flat(params)
+            x = layout.flatten(params)
+            f0, g0 = value_and_grad(loss_fn, params)
+            opt_state = _init_opt_state(x, f0, layout.flatten(g0), memory_size)
+        flat = torch.zeros((), dtype=torch.int32, device=x.device)
+        done = torch.zeros((), dtype=torch.bool, device=x.device)
+        f_prev = torch.as_tensor(f0, device=x.device)
 
-    def vg(point):
-        value, grad = value_and_grad(loss_fn, layout.unflatten(point))
-        return value, layout.flatten(grad)
+        def vg(point):
+            value, grad = value_and_grad(loss_fn, layout.unflatten(point))
+            return value, layout.flatten(grad)
 
-    pass_carry = on_segment is not None and (
-        "carry" in inspect.signature(on_segment).parameters)
-    histories = []
-    k_total = k_logged = 0
-    stopped = False
-    carry = (layout.unflatten(x), opt_state, f_prev, flat, done)
-    while k_total < maxiter:
-        hist = []
-        while len(hist) < seg_len and not stopped:
-            x, opt_state = _lbfgs_step(vg, x, opt_state, max_linesearch_steps)
-            f_new, g_new = opt_state["value"], opt_state["grad"]
-            hist.append(f_new)
-            denom = torch.clamp(torch.maximum(torch.abs(f_prev),
-                                              torch.abs(f_new)), min=1.0)
-            ftol_hit = (f_prev - f_new) <= ftol * denom
-            flat = torch.where(ftol_hit, flat + 1, 0).to(torch.int32)
-            gtol_hit = torch.max(torch.abs(g_new)) <= gtol
-            done = ((flat >= patience) | gtol_hit
-                    | ~torch.isfinite(f_new) | (f_new <= target))
-            f_prev = f_new
-            stopped = bool(done)
-        k_seg = len(hist)
-        hist = torch.stack(hist).cpu().numpy() if hist else np.zeros(
-            (0,), np.float32)
-        histories.append(hist)
-        k_total += k_seg
+        pass_carry = on_segment is not None and (
+            "carry" in inspect.signature(on_segment).parameters)
+        histories = []
+        k_total = k_logged = 0
+        stopped = False
         carry = (layout.unflatten(x), opt_state, f_prev, flat, done)
-        if log_every and len(hist) and k_total - k_logged >= log_every:
-            k_logged = k_total
-            print(f"lbfgs it {k_total}: loss {hist[-1]:.6e}", flush=True)
-        if on_segment is not None:
-            if pass_carry:
-                on_segment(k_total, carry[0], hist, carry=carry)
-            else:
-                on_segment(k_total, carry[0], hist)
-        if stopped or k_seg < seg_len:
-            break
+        while k_total < maxiter:
+            hist = []
+            while len(hist) < seg_len and not stopped:
+                with span("lbfgs.iteration"):
+                    x, opt_state = _lbfgs_step(vg, x, opt_state,
+                                               max_linesearch_steps)
+                    f_new, g_new = opt_state["value"], opt_state["grad"]
+                    hist.append(f_new)
+                    denom = torch.clamp(
+                        torch.maximum(torch.abs(f_prev), torch.abs(f_new)),
+                        min=1.0)
+                    ftol_hit = (f_prev - f_new) <= ftol * denom
+                    flat = torch.where(ftol_hit, flat + 1, 0).to(torch.int32)
+                    gtol_hit = torch.max(torch.abs(g_new)) <= gtol
+                    done = ((flat >= patience) | gtol_hit
+                            | ~torch.isfinite(f_new) | (f_new <= target))
+                    f_prev = f_new
+                    with span("lbfgs.read"):
+                        stopped = bool(done)
+            k_seg = len(hist)
+            with span("lbfgs.read"):
+                hist = torch.stack(hist).cpu().numpy() if hist else np.zeros(
+                    (0,), np.float32)
+            histories.append(hist)
+            k_total += k_seg
+            carry = (layout.unflatten(x), opt_state, f_prev, flat, done)
+            if log_every and len(hist) and k_total - k_logged >= log_every:
+                k_logged = k_total
+                print(f"lbfgs it {k_total}: loss {hist[-1]:.6e}", flush=True)
+            if on_segment is not None:
+                if pass_carry:
+                    on_segment(k_total, carry[0], hist, carry=carry)
+                else:
+                    on_segment(k_total, carry[0], hist)
+            if stopped or k_seg < seg_len:
+                break
 
-    history = (np.concatenate(histories) if histories
-               else np.zeros((0,), np.float32))
-    return LBFGSResult(params=carry[0], final_loss=carry[2], n_iters=k_total,
-                       loss_history=history, carry=carry)
+        history = (np.concatenate(histories) if histories
+                   else np.zeros((0,), np.float32))
+        return LBFGSResult(params=carry[0], final_loss=carry[2],
+                           n_iters=k_total, loss_history=history, carry=carry)

@@ -19,6 +19,7 @@ from ..banks import PointBank
 from ..losses.terms import LossSpec
 from ..ops.elasticity import Material
 from ..parallel.mesh import mesh_of, sum_grads_over_ranks, sum_over_ranks
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves, tree_map
 
 
@@ -35,15 +36,20 @@ def value_and_grad(fn: Callable, params, *, has_aux: bool = False):
     """(value, grads) of a scalar ``fn(params)``, or ((value, aux), grads)
     with ``has_aux``; grads has the layout of ``params``, and a leaf that
     ``fn`` does not reach gets zeros of its shape and dtype, as in
-    ``jax.value_and_grad``.  Values come back detached."""
-    live = tree_map(lambda t: t.detach().requires_grad_(), params)
-    out = fn(live)
-    loss, aux = out if has_aux else (out, None)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(live),
-                                     allow_unused=True,
-                                     materialize_grads=True))
-    gtree = tree_map(lambda t: next(grads), live)
-    loss = loss.detach()
+    ``jax.value_and_grad``.  Values come back detached.  Spans: ``vg``
+    (the call, not synchronised with the device), ``vg.forward`` (``fn``)
+    and ``vg.backward`` (the gradient)."""
+    with span("vg"):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        with span("vg.forward"):
+            out = fn(live)
+        loss, aux = out if has_aux else (out, None)
+        with span("vg.backward"):
+            grads = iter(torch.autograd.grad(loss, tree_leaves(live),
+                                             allow_unused=True,
+                                             materialize_grads=True))
+        gtree = tree_map(lambda t: next(grads), live)
+        loss = loss.detach()
     if not has_aux:
         return loss, gtree
     return (loss, tree_map(lambda t: t.detach(), aux)), gtree

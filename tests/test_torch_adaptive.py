@@ -1,8 +1,9 @@
 """PyTorch port: residual-based adaptive sampling
-(``geometry/adaptive.py``), the debugging helpers (``utils/debug.py``) and
-the profiling helpers (``utils/profiling.py``) against the JAX package on
-the CPU, in float64."""
+(``geometry/adaptive.py``) and the debugging helpers (``utils/debug.py``)
+against the JAX package on the CPU, in float64; the profiling helpers
+(``utils/profiling.py``) on the CPU."""
 
+import json
 import os
 
 import jax
@@ -17,7 +18,6 @@ from pinn_elastodynamics_tpu.geometry import adaptive as jad
 from pinn_elastodynamics_tpu.models import fields as jfields
 from pinn_elastodynamics_tpu.ops.elasticity import Material as JMaterial
 from pinn_elastodynamics_tpu.utils import debug as jdebug
-from pinn_elastodynamics_tpu.utils import profiling as jprof
 from pinn_elastodynamics_torch.banks import make_bank
 from pinn_elastodynamics_torch.cases import plate_hole as tplate
 from pinn_elastodynamics_torch.geometry import adaptive as tad
@@ -193,33 +193,39 @@ def test_nan_debugging_scope():
     assert torch.is_anomaly_enabled() == prev
 
 
-@pytest.mark.parametrize("layers", [(3, 70, 70, 5), (4, 100, 100, 100, 12),
-                                    (128, 140, 7)])
-@pytest.mark.parametrize("order", [1, 2])
-@pytest.mark.parametrize("with_grad", [True, False])
-def test_flops_estimate_matches_jax(layers, order, with_grad):
-    kw = dict(order=order, with_grad=with_grad)
-    assert tprof.flops_estimate_mlp_jet(1000, layers, **kw) == (
-        jprof.flops_estimate_mlp_jet(1000, layers, **kw))
-    assert tprof.evals_per_sec(1000, 0.5) == jprof.evals_per_sec(1000, 0.5)
-
-
 def test_timers_and_trace_on_the_cpu(tmp_path):
-    """The timers run on CPU tensors (nothing to synchronise), the chained
-    timer feeds its carry through, and the trace writes a profiler file
-    only when given a directory."""
+    """The timer runs on CPU tensors (nothing to synchronise), and the trace
+    writes a profiler file only when given a directory, with the program's
+    spans of the same seconds beside it on the profiler file's clock."""
     x = torch.ones(64, 64)
     assert tprof.time_blocked(torch.matmul, x, x, iters=3, warmup=1) > 0
-    steps = []
-
-    def step(c):
-        steps.append(c)
-        return c + 1
-
-    assert tprof.time_chained(step, torch.zeros(()), iters=4, warmup=1) > 0
-    assert [int(s) for s in steps] == [0, 1, 2, 3, 4]
     with tprof.profiler_trace(None):
-        pass
+        with tprof.span("outside") as sp:
+            assert sp is tprof.NO_SPAN
     with tprof.profiler_trace(str(tmp_path)):
-        torch.matmul(x, x)
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path))
+        with tprof.span("request", points=64):
+            with torch.profiler.record_function("inside"):
+                with tprof.span("work"):
+                    torch.matmul(x, x)
+    traces = [f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    stem = traces[0][: -len(".pt.trace.json")]
+    with open(tmp_path / traces[0]) as f:
+        trace = json.load(f)
+    with open(tmp_path / f"{stem}.spans.json") as f:
+        spans = json.load(f)
+    assert spans.get("baseTimeNanoseconds") == trace.get("baseTimeNanoseconds")
+    events = {e["name"]: e for e in spans["traceEvents"]}
+    assert set(events) == {"request", "work"}
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in events.values())
+    req, work = events["request"], events["work"]
+    assert req["args"]["points"] == 64 and req["args"]["parent"] == 0
+    assert work["args"]["parent"] == req["args"]["id"]
+    assert work["args"]["root"] == req["args"]["id"]
+    # one time axis: the profiler's range opened inside ``request`` and
+    # closed around ``work``, to within 50 microseconds
+    inside = next(e for e in trace["traceEvents"] if e.get("name") == "inside")
+    slack = 50.0
+    assert req["ts"] - slack <= inside["ts"] <= work["ts"] + slack
+    assert (work["ts"] + work["dur"] - slack <= inside["ts"] + inside["dur"]
+            <= req["ts"] + req["dur"] + slack)
