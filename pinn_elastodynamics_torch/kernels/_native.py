@@ -63,6 +63,9 @@ SIGNATURES = {
 QUERIES = {
     # n_tangents, order, dims, n_layers -> workspace floats per block, or -1
     "fused_mlp_jet_bwd_workspace": ([_I, _I, _P, _I], ctypes.c_longlong),
+    # n_tangents, order, dims, n_layers -> the body launched (an index of
+    # fused_jet_vjp.BODIES), or -1
+    "fused_mlp_jet_bwd_body": ([_I, _I, _P, _I], ctypes.c_int),
     # a, order, (dims, n_layers) x 3 -> workspace floats per block, or -1
     "fused_composite_jet_bwd_workspace": (
         [_I, _I, _P, _I, _P, _I, _P, _I], ctypes.c_longlong),

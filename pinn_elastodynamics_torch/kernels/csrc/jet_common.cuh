@@ -61,6 +61,10 @@ __device__ __forceinline__ void copy_async_commit() {
 __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// Wait for every committed group of this thread's copies but the newest.
+__device__ __forceinline__ void copy_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 // Load that bypasses L1: reads what this block wrote to global memory
 // earlier in the kernel.
 __device__ __forceinline__ float4 load_cg(const float4* p) { return __ldcg(p); }

@@ -24,7 +24,8 @@ On a CPU tensor the forward and backward take their plain versions
 (:func:`mlp_jet_bwd_reference`, :func:`composite_jet_bwd_reference`: the
 ``_remat_forward`` / ``_reverse_sweep`` recurrence in PyTorch, any float
 dtype); on a CUDA tensor they launch the kernels or raise.  ``LAUNCHES``
-counts the backward kernels' launches.
+counts the backward kernels' launches, ``BODIES`` the B2/B3b launches by the
+kernel body the library chose for the net's widths.
 """
 
 from __future__ import annotations
@@ -53,12 +54,18 @@ from .fused_jet import (
 
 LAUNCHES = {"fused_mlp_jet_bwd": 0, "fused_seed_jet_bwd": 0,
             "fused_composite_jet_bwd": 0}
+# B2 and B3b launches by the kernel body they ran, in the order of the
+# library's fused_mlp_jet_bwd_body query: the wide-tile body, and the body for
+# nets too wide for two weight buffers (the 140-wide ones; 100 x 8 at 32
+# points).  Not part of LAUNCHES.
+BODIES = {"tile": 0, "wide140": 0}
 NETS = ("uv", "dist", "part")
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BODIES):
+        for name in counts:
+            counts[name] = 0
 
 
 # -- plain versions ---------------------------------------------------------
@@ -218,7 +225,15 @@ def _launch_mlp_bwd(params: Params, h0, d, dtt, cot, full_dx: bool, key: str):
             grad.data_ptr(), dseed.data_ptr(), workspace.data_ptr(), stream)
     _native.check(err, key)
     LAUNCHES[key] += 1
+    count_body(lib, a, order, dims)
     return _unpack_grads(grad, dims), dseed
+
+
+def count_body(lib, a: int, order: int, dims: Sequence[int]) -> None:
+    """Count one B2/B3b launch in ``BODIES`` under the body that ``lib``
+    runs for a net of widths ``dims``."""
+    body = lib.fused_mlp_jet_bwd_body(a, order, _int_array(dims), len(dims) - 1)
+    BODIES[list(BODIES)[body]] += 1
 
 
 # -- backward wrappers --------------------------------------------------------

@@ -18,7 +18,15 @@ runs each kernel once and hashes its outputs, then times it with CUDA events
   and N = 103,711, order 2 (``fused_composite_jet_train``);
 * B2 ``fused_mlp_jet_bwd``, 3 -> 8 x 70 -> 5, N = 103,711, order 2;
 * B3b ``fused_seed_jet_bwd``, Fourier64 widths, N = 103,711, order 2;
-* B5 ``fused_composite_jet_bwd``, net-BC nets, N = 103,711, order 2.
+* B5 ``fused_composite_jet_bwd``, net-BC nets, N = 103,711, order 2;
+* B2 and B3b at the wave, inverse and 3D widths (``WAVE_BWD``): W1
+  3 -> 6 x 140 -> 7 at its 146,149 collocation points, W2's B3b (the
+  Fourier64 seed, 128 -> 6 x 140 -> 7), I1 (W1's widths) at order 1 on
+  118,329 points and at order 2 on its 4,000 acceleration sensors, one of
+  M1's eight microbatches (109,592 points), W3 3 -> 8 x 80 -> 7, W4
+  3 -> 8 x 100 -> 7 and E1 4 -> 6 x 100 -> 12; each also against its
+  float64 plain version (``max_err``: the largest gap over a leaf's largest
+  magnitude, at least 1).
 
 It prints the card, each run's times, and one JSON line: per kernel the
 base and changed times (the mean of each tree's two medians), their ratio,
@@ -45,6 +53,17 @@ import tempfile
 SEED = 20261017
 N_FWD = 65536
 N_BWD = 103_711
+# name -> (widths, points, order, full_dx): B2/B3b at the other cases' nets.
+WAVE_BWD = {
+    "W1": ([3] + [140] * 6 + [7], 146_149, 1, False),
+    "W2": ([128] + [140] * 6 + [7], 146_149, 1, True),
+    "I1_o1": ([3] + [140] * 6 + [7], 118_329, 1, False),
+    "I1_o2": ([3] + [140] * 6 + [7], 4_000, 2, False),
+    "M1": ([3] + [140] * 6 + [7], 109_592, 1, False),
+    "W3": ([3] + [80] * 8 + [7], 124_830, 1, False),
+    "W4": ([3] + [100] * 8 + [7], 150_470, 1, False),
+    "E1": ([4] + [100] * 6 + [12], 225_074, 1, False),
+}
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -122,9 +141,36 @@ def worker(tree: str, runs: int) -> dict:
         "fused_composite_jet_bwd": lambda: fv.fused_composite_jet_bwd(
             net, xb, cot, order=2),
     }
+    refs = {}
+    for key, (dims, n, order, full_dx) in WAVE_BWD.items():
+        a = dims[0] if dims[0] in (3, 4) else 3
+        params = _mlp(rng, dims, torch, dev)
+        h0 = f32(rng.uniform(-1, 1, (n, dims[0])))
+        d = f32(rng.standard_normal((a, n, dims[0])))
+        dtt = f32(rng.standard_normal((n, dims[0]))) if order == 2 else None
+        cot_w = f32(rng.standard_normal((1 + a + order - 1, n, dims[-1])))
+        args = (params, h0, d, dtt, cot_w)
+        name = ("fused_seed_jet_bwd_" if full_dx else "fused_mlp_jet_bwd_") + key
+        kernels[name] = (lambda args=args, full_dx=full_dx:
+                         fv.fused_mlp_jet_bwd(*args, full_dx=full_dx))
+        refs[name] = (args, full_dx)
     out = {}
     for name, fn in kernels.items():
-        digest = _digest(tree_leaves(fn()))
+        got = fn()
+        digest = _digest(tree_leaves(got))
+        max_err = None
+        if name in refs:
+            (params, h0, d, dtt, cot_w), full_dx = refs[name]
+            f64 = [{k: v.double() for k, v in layer.items()} for layer in params]
+            want, want_seed = fv.mlp_jet_bwd_reference(
+                f64, h0.double(), d.double(),
+                None if dtt is None else dtt.double(), cot_w.double())
+            want = (want, want_seed if full_dx else want_seed[0])
+            max_err = max(
+                float((g.double() - w).abs().max())
+                / max(1.0, float(w.abs().max()))
+                for g, w in zip(tree_leaves(got), tree_leaves(want)))
+            del want, want_seed
         for _ in range(3):
             fn()
         times = []
@@ -136,7 +182,8 @@ def worker(tree: str, runs: int) -> dict:
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
-        out[name] = {"ms": float(np.median(times)), "digest": digest}
+        out[name] = {"ms": float(np.median(times)), "digest": digest,
+                     "max_err": max_err}
     return out
 
 
@@ -247,6 +294,8 @@ def main() -> int:
             "ratio": change_ms / base_ms,
             "runs_ms": {"base": [r["ms"] for r in base],
                         "change": [r["ms"] for r in change]},
+            "max_err": {"base": base[0].get("max_err"),
+                        "change": change[0].get("max_err")},
             "bitwise_equal": base[0]["digest"] == change[0]["digest"],
             "repeatable": (base[0]["digest"] == base[1]["digest"]
                            and change[0]["digest"] == change[1]["digest"]),

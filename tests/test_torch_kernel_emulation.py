@@ -74,6 +74,7 @@ inline void copy_async4(float* dst, const float* src) { *dst = *src; }
 inline void copy_async16(float* dst, const float* src) { memcpy(dst, src, 16); }
 inline void copy_async_commit() {}
 inline void copy_async_wait() {}
+inline void copy_async_wait_prior() {}
 inline float4 load_cg(const float4* p) { return *p; }
 template <class K, class... A>
 void emu_launch(int grid, int, size_t bytes, cudaStream_t, K k, A... args) {
@@ -163,6 +164,7 @@ def _mlp_bwd(lib, params, h0, d, dtt, cot, full_dx, max_blocks):
         max_blocks, partial.data_ptr(), grad.data_ptr(), dseed.data_ptr(),
         workspace.data_ptr(), None)
     assert err == 0
+    tvjp.count_body(lib, d.shape[0], order, dims)
     return tvjp._unpack_grads(grad, dims), dseed
 
 
@@ -197,15 +199,17 @@ def test_emulated_mlp_backward_matches_plain(lib, a, order):
 
 
 # (a, order, widths, n, full_dx, max_blocks): the plate nets of B2 and B3b,
-# the wave-confined Fourier net (a 16-point tile with one weight buffer),
-# the order-1 wave nets 80 x 8 and 100 x 8 of B2, the inverse problem's
-# 140-wide net at order 2 (its acceleration sensors), a 3D order-2 net, the
-# two 3D nets of cases/elastic3d.py (order 1, twelve outputs), and nets of
-# 1, 2 and 4 layers (every rotation of the row buffers); ragged n, several
-# tiles per block and several blocks.
+# the wave-confined net (W1) and its Fourier form (a 16-point tile with one
+# weight buffer), the order-1 wave nets 80 x 8 and 100 x 8 of B2, the
+# inverse problem's 140-wide net at order 2 (its acceleration sensors), a 3D
+# order-2 net, the two 3D nets of cases/elastic3d.py (order 1, twelve
+# outputs), nets of 1, 2 and 4 layers (every rotation of the row buffers),
+# and a two-layer net wide enough for one weight buffer at 8 points; ragged
+# n, several tiles per block and several blocks.
 WIDE_CASES = {
     "b2_plate": (3, 2, [3] + [70] * 8 + [5], 77, False, 2),
     "b3b_fourier": (3, 2, [128] + [70] * 8 + [5], 45, True, 2),
+    "b2_wave_confined": (3, 1, [3] + [140] * 6 + [7], 117, False, 3),
     "b3b_wave_confined": (3, 1, [128] + [140] * 6 + [7], 37, True, 3),
     "b2_wave_infinite": (3, 1, [3] + [80] * 8 + [7], 53, False, 2),
     "b2_wave_semi_infinite": (3, 1, [3] + [100] * 8 + [7], 41, False, 2),
@@ -216,15 +220,23 @@ WIDE_CASES = {
     "one_layer": (3, 1, [3, 5], 70, False, 2),
     "two_layers": (4, 1, [12, 7, 5], 40, True, 3),
     "four_layers": (4, 2, [9, 11, 6, 8, 4], 66, True, 2),
+    "wide140_two_layers": (4, 1, [128, 300, 5], 21, True, 2),
 }
+# The cases whose widths leave the wide-tile layout one weight buffer (the
+# 140-wide nets at 16 points, the 100 x 8 net at 32, a two-layer net at 8),
+# so the launcher runs the wide140 body; every other case runs the
+# wide-tile body.
+WIDE140_CASES = {"b2_wave_confined", "b3b_wave_confined", "b2_inverse_order2",
+                 "b2_wave_semi_infinite", "wide140_two_layers"}
 
 
 @pytest.mark.parametrize("case", sorted(WIDE_CASES))
 def test_emulated_wide_tile_backward_matches_plain(lib, case):
-    """B2/B3b at widths that pick each tile and buffer layout, on a ragged
-    n that is not a multiple of the tile, with several tiles per block and
-    several blocks (so each block's workspace offset is used)."""
+    """B2/B3b at widths that pick each tile, buffer layout and body, on a
+    ragged n that is not a multiple of the tile, with several tiles per block
+    and several blocks (so each block's workspace offset is used)."""
     a, order, dims, n, full_dx, max_blocks = WIDE_CASES[case]
+    tvjp.reset_launches()
     rng = np.random.default_rng(sum(map(ord, case)))
     s = 1 + a + order - 1
     e = dims[0]
@@ -245,6 +257,8 @@ def test_emulated_wide_tile_backward_matches_plain(lib, case):
     again = _mlp_bwd(lib, params, h0, d, dtt, cot, full_dx, max_blocks)
     assert all(torch.equal(x, y) for x, y in
                zip(tree_leaves(again), tree_leaves((grads, dseed))))
+    body = "wide140" if case in WIDE140_CASES else "tile"
+    assert tvjp.BODIES == {**dict.fromkeys(tvjp.BODIES, 0), body: 2}
 
 
 def test_emulated_backward_workspace_size(lib):
@@ -261,6 +275,7 @@ def test_emulated_backward_workspace_size(lib):
     assert query(3, 2, [128] + [70] * 8 + [5]) == 8 * 70 * (5 * 32 + 4)
     assert query(3, 2, [3] + [70] * 8 + [5]) == 8 * 70 * (5 * 32 + 4)
     assert query(3, 1, [128] + [140] * 6 + [7]) == 6 * 140 * (4 * 16 + 4)
+    assert query(3, 1, [3] + [140] * 6 + [7]) == 6 * 140 * (4 * 16 + 4)
     assert query(3, 2, [3] + [140] * 6 + [7]) == 6 * 140 * (5 * 16 + 4)
     assert query(3, 1, [3] + [80] * 8 + [7]) == 8 * 80 * (4 * 32 + 4)
     assert query(3, 1, [3] + [100] * 8 + [7]) == 8 * 100 * (4 * 32 + 4)

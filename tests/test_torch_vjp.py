@@ -197,6 +197,7 @@ def test_cpu_backward_launches_no_kernel():
     assert all(l["W"].grad is not None for l in params)
     assert tvjp.LAUNCHES == {"fused_mlp_jet_bwd": 0, "fused_seed_jet_bwd": 0,
                              "fused_composite_jet_bwd": 0}
+    assert tvjp.BODIES == {"tile": 0, "wide140": 0}
 
 
 def test_backward_wrappers_reject_bad_arguments():
@@ -239,5 +240,6 @@ def test_native_builds_one_library_of_both_sources(tmp_path, monkeypatch):
     assert len(sig["fused_composite_jet_launch"]) == 17
     assert len(sig["fused_mlp_jet_bwd_launch"]) == 17   # + workspace
     assert len(_native.QUERIES["fused_mlp_jet_bwd_workspace"][0]) == 4
+    assert len(_native.QUERIES["fused_mlp_jet_bwd_body"][0]) == 4
     assert len(sig["fused_composite_jet_bwd_launch"]) == 22   # + workspace
     assert len(_native.QUERIES["fused_composite_jet_bwd_workspace"][0]) == 8
