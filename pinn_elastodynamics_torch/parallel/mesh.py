@@ -13,6 +13,12 @@ the masked means and the gradients; here they are written out:
   leaves pass through an identity whose backward all-reduces every leaf's
   gradient in one flat buffer (:func:`sum_grads_over_ranks`).
 
+Each collective is counted in ``COLLECTIVES`` and its bytes in
+``COLLECTIVE_BYTES`` (always on), and opens a ``mesh.all_reduce`` (with its
+``kind`` and ``bytes``) or ``mesh.all_gather`` span while a profiler records
+(``utils/profiling.py::span``).  Under NCCL the span covers the enqueue on
+the host; the reduction itself runs on the device's stream.
+
 So ``make_loss_fn``, ``make_grad_step``, ``value_and_grad``, ``minimize``
 and ``run_adam`` run unchanged on banks from :func:`shard_banks`, and every
 rank holds the same loss, gradient and parameters bit for bit.  With no
@@ -35,6 +41,7 @@ import torch.distributed as dist
 
 from ..banks import PointBank
 from ..device import resolve_device
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves, tree_map
 
 POINTS_AXIS = "points"
@@ -44,11 +51,26 @@ POINTS_AXIS = "points"
 # (a sharded bank's per-row values joined on every rank, in
 # ``geometry.adaptive.topk_refine``).
 COLLECTIVES = {"sums": 0, "grads": 0, "gathers": 0}
+# Bytes of the buffer each collective hands over on this rank, by the same
+# kinds: the packed vector an all-reduce sums, the local tensor an
+# all-gather sends.
+COLLECTIVE_BYTES = {"sums": 0, "grads": 0, "gathers": 0}
 
 
 def reset_collectives() -> None:
     for k in COLLECTIVES:
         COLLECTIVES[k] = 0
+        COLLECTIVE_BYTES[k] = 0
+
+
+def _all_reduce(flat: torch.Tensor, group, kind: str) -> None:
+    """Sum ``flat`` over the group in place, counted under ``kind``, in a
+    ``mesh.all_reduce`` span (recorded while a profiler records)."""
+    nbytes = flat.nbytes
+    with span("mesh.all_reduce", kind=kind, bytes=nbytes):
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVES[kind] += 1
+    COLLECTIVE_BYTES[kind] += nbytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,8 +180,7 @@ class _SumOverRanks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        COLLECTIVES["sums"] += 1
+        _all_reduce(out, group, "sums")
         return out
 
     @staticmethod
@@ -184,8 +205,11 @@ def gather_over_ranks(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     if mesh is None or mesh.group is None:
         return x
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    nbytes = x.nbytes
+    with span("mesh.all_gather", bytes=nbytes):
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
     COLLECTIVES["gathers"] += 1
+    COLLECTIVE_BYTES["gathers"] += nbytes
     return torch.cat(parts)
 
 
@@ -203,8 +227,7 @@ class _SumGrads(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         flat = torch.cat([g.reshape(-1) for g in grads])   # promotes dtypes
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=ctx.group)
-        COLLECTIVES["grads"] += 1
+        _all_reduce(flat, ctx.group, "grads")
         parts = torch.split(flat, [s.numel() for s in ctx.shapes])
         return (None, *(p.view(s).to(dt) for p, s, dt
                         in zip(parts, ctx.shapes, ctx.dtypes)))
