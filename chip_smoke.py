@@ -155,18 +155,12 @@ use only), then, in order:
    as the pieces predict; then the inverse problem (B1,
    B2) and ``topk_refine`` (B1; k = 4,096, one gather) over an NCCL world
    of one in this process, bitwise against mesh-less, both timed;
-22. the port's benchmark (``python -m pinn_elastodynamics_torch.bench``)
-   at its defaults, nothing cut, in a subprocess: exit 0, one JSON line
-   with ``"correct": true`` (its own check of the full-loss and uv-phase
-   value+grads against eager float64 and of the one-launch composite
-   forward against the three-launch path), the card's name, every
-   measurement, one B4 and one B5 launch per checked value+grad, three B1
-   on the three-launch path, and 0 < mfu <= 1.05; the line is printed;
 
 and prints one JSON line describing the kernels, then, only if every phase
 passed, the result line ``{"ok": true, "device": {...}}``.  Any failure
-raises and exits non-zero.  Without a CUDA GPU, or without the package next
-to it, it exits non-zero before printing a result.
+raises and exits non-zero.  Without a CUDA GPU, or without the package and
+``benchmark/`` (whose ``flops.py`` gives every bound) next to it, it exits
+non-zero before printing a result.
 """
 
 from __future__ import annotations
@@ -180,8 +174,7 @@ import urllib.request
 
 import numpy as np
 
-from pinn_elastodynamics_torch.utils.profiling import (
-    F32_PEAK_FLOPS, HBM_BYTES_PER_S, bwd_flops_per_point, flops_per_point)
+from benchmark import flops as bench_flops
 
 SEED = 20261017
 N_BIG = 65536
@@ -334,27 +327,6 @@ N_ENTRY_PROBES = 4_000    # probes of the inverse problem's frames
 ENTRY_REFINE_K = 4096
 ENTRY_RUNS = 5
 
-# Phase 22: the bench at its defaults.  The kernel launches of each call
-# its correctness check counts (every other kernel 0): one B4 and one B5
-# per value+grad (the hole bank's traction takes the plain forward), one
-# B4 for the one-launch composite forward, three B1 for the three-launch
-# path.
-BENCH_ARGS = ()
-BENCH_TIMEOUT_S = 600
-BENCH_LAUNCHES = {
-    "full_value_and_grad": {"fused_composite_jet": 1,
-                            "fused_composite_jet_bwd": 1},
-    "uv_phase_value_and_grad": {"fused_composite_jet": 1,
-                                "fused_composite_jet_bwd": 1},
-    "one_launch_forward": {"fused_composite_jet": 1},
-    "three_launch_forward": {"fused_mlp_jet": 3},
-}
-BENCH_MEASURED = ("value", "mfu", "uv_phase_evals_per_sec",
-                  "composite_fwd_evals_per_sec", "lbfgs_iters_per_sec",
-                  "lbfgs_iters_per_sec_cold", "cpu_evals_per_sec",
-                  "seconds_to_target")
-MFU_MAX = 1.05
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -496,8 +468,8 @@ def time_kernel(torch, name, kern, plain, flops, nbytes, label, runs=20):
     over the f32 peak and its bytes over the memory rate."""
     ms = time_cuda(torch, kern, runs=runs)
     plain_ms = time_cuda(torch, plain, runs=runs)
-    op_ms = flops / F32_PEAK_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / bench_flops.F32_PEAK_FLOPS * 1e3
+    byte_ms = nbytes / bench_flops.HBM_BYTES_PER_S * 1e3
     log(f"  {name} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
@@ -809,7 +781,7 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
             lambda: fv.fused_mlp_jet_bwd(raw_p, h0, d, dtt, cot,
                                          full_dx=False),
             lambda: fv.mlp_jet_bwd_reference(raw_p, h0, d, dtt, cot),
-            bwd_flops_per_point(uv_dims, 5) * n,
+            bench_flops.bwd(uv_dims, 5) * n,
             4 * (5 * n * 3 + cot.numel() + 2 * n_params(raw_p) + n * 3),
             "pinn_elastodynamics_tpu/kernels/fused_jet_vjp.py:178"),
         "fused_seed_jet_bwd": (
@@ -817,15 +789,15 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
                                          full_dx=True),
             lambda: fv.mlp_jet_bwd_reference(ana_p["uv"]["mlp"], fh, fd, ftt,
                                              cot),
-            bwd_flops_per_point(four_dims, 5) * n,
+            bench_flops.bwd(four_dims, 5) * n,
             4 * (2 * 5 * n * 2 * FOURIER + cot.numel()
                  + 2 * n_params(ana_p["uv"]["mlp"])),
             "pinn_elastodynamics_tpu/kernels/fused_jet_vjp.py:342"),
         "fused_composite_jet_bwd": (
             lambda: fv.fused_composite_jet_bwd(net_p, x, cot, order=2),
             lambda: fv.composite_jet_bwd_reference(net_p, x, cot, order=2),
-            (bwd_flops_per_point(uv_dims, 5)
-             + 2 * bwd_flops_per_point(small_dims, 5)
+            (bench_flops.bwd(uv_dims, 5)
+             + 2 * bench_flops.bwd(small_dims, 5)
              + 2 * 5 * (70 * 5 + 20 * 5)) * n,   # + the uv and dist heads
             4 * (2 * x.numel() + cot.numel() + 2 * n_params(net_p)),
             "pinn_elastodynamics_tpu/kernels/fused_jet_vjp.py:575"),
@@ -857,7 +829,7 @@ def backward_timings(torch, dev, rng, trees, fourier, trained, bwd_err,
             lambda: fv.fused_mlp_jet_bwd(params, wh, wd, None, wcot,
                                          full_dx=seeded),
             lambda: fv.mlp_jet_bwd_reference(params, wh, wd, None, wcot),
-            bwd_flops_per_point(dims, s_w) * n_w, nbytes,
+            bench_flops.bwd(dims, s_w) * n_w, nbytes,
             f"{key} n={n_w} order=1", runs=10)
         entry = next(k for k in kernels if k["name"] == name)
         entry.setdefault("wave_shapes", {})[key] = times
@@ -1942,13 +1914,13 @@ def inverse_checks(torch, dev):
             torch, "fused_mlp_jet",
             lambda: fj.fused_jet_stack(net, x, order=2),
             lambda: fj.fused_jet_reference(net, x, order=2),
-            flops_per_point(dims, 5) * n,
+            bench_flops.fwd(dims, 5) * n,
             4 * (x.numel() + 5 * n * dims[-1] + n_par), f"inverse n={n} order=2")
     bwd = time_kernel(
         torch, "fused_mlp_jet_bwd",
         lambda: fv.fused_mlp_jet_bwd(net, h0, d, dtt, cot, full_dx=False),
         lambda: fv.mlp_jet_bwd_reference(net, h0, d, dtt, cot),
-        bwd_flops_per_point(dims, 5) * n,
+        bench_flops.bwd(dims, 5) * n,
         4 * (h0.numel() + d.numel() + dtt.numel() + cot.numel()
              + 2 * n_par + h0.numel()), f"inverse n={n} order=2", runs=10)
     # And at the collocation's order-1 shape, which the profile below
@@ -1964,14 +1936,14 @@ def inverse_checks(torch, dev):
             torch, "fused_mlp_jet",
             lambda: fj.fused_jet_stack(net, xc, order=1),
             lambda: fj.fused_jet_reference(net, xc, order=1),
-            flops_per_point(dims, 4) * nc,
+            bench_flops.fwd(dims, 4) * nc,
             4 * (xc.numel() + 4 * nc * dims[-1] + n_par),
             f"inverse n={nc} order=1")
     bwd1 = time_kernel(
         torch, "fused_mlp_jet_bwd",
         lambda: fv.fused_mlp_jet_bwd(net, ch0, cd, None, ccot, full_dx=False),
         lambda: fv.mlp_jet_bwd_reference(net, ch0, cd, None, ccot),
-        bwd_flops_per_point(dims, 4) * nc,
+        bench_flops.bwd(dims, 4) * nc,
         4 * (ch0.numel() + cd.numel() + ccot.numel() + 2 * n_par
              + ch0.numel()), f"inverse n={nc} order=1", runs=10)
     del ch0, cd, ccot
@@ -2701,58 +2673,6 @@ def entry_checks(torch, dev):
     torch.cuda.empty_cache()
     return total
 
-def bench_checks(torch):
-    """Phase 22: ``python -m pinn_elastodynamics_torch.bench`` at its
-    defaults (BENCH_ARGS; nothing cut) in a subprocess, which loads the
-    library this process built.  It must exit 0 and print one JSON line
-    with ``"correct": true``, the card's name, every measurement in
-    BENCH_MEASURED, the launches BENCH_LAUNCHES of each checked call, B1,
-    B4 and B5 launched in its measurements, and 0 < mfu <= 1.05.  Returns
-    all the launches it made."""
-    import os
-
-    proc = subprocess.run(
-        [sys.executable, "-m", "pinn_elastodynamics_torch.bench",
-         *BENCH_ARGS],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-    if proc.returncode != 0:
-        raise AssertionError(f"bench exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    printed = proc.stdout.strip().splitlines()
-    log(f"  bench line: {printed[-1]}")
-    line = json.loads(printed[-1])
-    if len(printed) != 1 or line["correct"] is not True:
-        raise AssertionError(f"bench printed {len(printed)} lines, correct "
-                             f"{line['correct']!r}")
-    if line["device"]["name"] != torch.cuda.get_device_name(0):
-        raise AssertionError(f"bench ran on {line['device']}")
-    missing = [k for k in BENCH_MEASURED if line[k] is None]
-    if missing:
-        raise AssertionError(f"bench measured no {missing}")
-    launches = line["launches"]
-    for call, want in BENCH_LAUNCHES.items():
-        want = {**dict.fromkeys(launches[call], 0), **want}
-        if launches[call] != want:
-            raise AssertionError(f"bench {call}: launches {launches[call]} "
-                                 f"!= {want}")
-    for name in ("fused_mlp_jet", "fused_composite_jet",
-                 "fused_composite_jet_bwd"):
-        if launches["measurements"][name] < 1:
-            raise AssertionError(f"bench measurements did not launch {name}")
-    if not 0 < line["mfu"] <= MFU_MAX:
-        raise AssertionError(f"bench mfu {line['mfu']} outside (0, {MFU_MAX}]")
-    log(f"  bench: {line['value']:.1f} evals/s, mfu {line['mfu']:.4f}, "
-        f"uv phase {line['uv_phase_evals_per_sec']:.1f} evals/s, L-BFGS "
-        f"{line['lbfgs_iters_per_sec']:.3f} it/s (cold "
-        f"{line['lbfgs_iters_per_sec_cold']:.3f}), seconds to target "
-        f"{line['seconds_to_target']:.3f} (hit {line['target_hit']}, "
-        f"{line['target_iters']} iterations)")
-    total = None
-    for counts in launches.values():
-        total = add_launches(total, counts)
-    return total
-
 
 def eager_copy(model):
     """The same model with every jet on the plain (eager) path."""
@@ -2984,14 +2904,14 @@ def main() -> int:
             "fused_mlp_jet": (
                 lambda: fj.fused_seed_jet_stack(mlp, *seed),
                 lambda: fj.fused_seed_jet_reference(mlp, *seed),
-                flops_per_point(four_dims, s) * n,
+                bench_flops.fwd(four_dims, s) * n,
                 4 * sum(t.numel() for t in seed) + out_bytes
                 + weight_bytes["fused_mlp_jet"]),
             "fused_composite_jet": (
                 lambda: fj.fused_composite_jet_stack(net_p, x, order=order),
                 lambda: fj.fused_composite_jet_reference(net_p, x,
                                                          order=order),
-                sum(flops_per_point(dims, s)
+                sum(bench_flops.fwd(dims, s)
                     for dims in (uv_dims, small_dims, small_dims)) * n,
                 4 * x.numel() + out_bytes
                 + weight_bytes["fused_composite_jet"]),
@@ -3021,7 +2941,7 @@ def main() -> int:
             s_w = shape_streams(key)
             wave_fwd[key] = time_kernel(
                 torch, "fused_mlp_jet", kern, plain,
-                flops_per_point(dims, s_w) * n,
+                bench_flops.fwd(dims, s_w) * n,
                 in_bytes + 4 * s_w * n * dims[-1] + 4 * n_params(params),
                 f"{key} n={n} order=1")
     kernels = [{
@@ -3148,18 +3068,12 @@ def main() -> int:
             raise AssertionError(f"phase entry did not launch {name}")
     log(f"phase entry: {time.perf_counter() - t0:.2f} s")
 
-    # 22. The port's benchmark entry point.
-    t0 = time.perf_counter()
-    bench_launches = bench_checks(torch)
-    log(f"  launches of the bench: {bench_launches}")
-    log(f"phase bench: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         k["launches"] += sum(counts[k["name"]] for counts in (
             lbfgs_launches, pipe_launches, wave_launches,
             curriculum_launches, million_launches, endgame_launches,
             elastic3d_launches, fem_launches, inverse_launches,
-            adaptive_launches, mesh_launches, entry_launches,
-            bench_launches))
+            adaptive_launches, mesh_launches, entry_launches))
         if k["name"] in inverse_times:
             k.update(inverse_times[k["name"]])
             k["max_abs_err"] = max(k["max_abs_err"],

@@ -1,11 +1,11 @@
-"""Profiling utilities: a step timer, the program's spans, profiler traces.
+"""Profiling utilities: the program's spans and profiler traces.
 
 Counterpart of ``pinn_elastodynamics_tpu/utils/profiling.py``.  Fills the
-reference's tracing gap (SURVEY.md §5: wall-clock prints only): device-step
-timing, host spans at the program's layer boundaries (the optimizer, the
-value+grad, serving), and an optional ``torch.profiler`` trace in place of
-the JAX package's ``xla_trace``.  Where JAX calls ``block_until_ready`` on a
-result, the timer synchronises the CUDA device that holds it.
+reference's tracing gap (SURVEY.md §5: wall-clock prints only): host spans
+at the program's layer boundaries (the optimizer, the value+grad, serving),
+and an optional ``torch.profiler`` trace in place of the JAX package's
+``xla_trace``.  Timing and FLOP arithmetic belong to the benchmark
+(``benchmark/``), which reads these spans.
 
 Spans are recorded only while a ``torch.profiler`` session records, so
 they describe the same seconds as its device trace; otherwise ``span``
@@ -24,40 +24,10 @@ import os
 import socket
 import threading
 import time
-from typing import Callable, List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
-
-from .tree import tree_leaves
-
-# One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
-# float32 outside the tensor cores, which the exact-f32 FFMA kernels run on,
-# and the HBM3 rate.  The denominators of every bound and utilisation the
-# port reports.
-F32_PEAK_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
-
-
-def _block(out) -> None:
-    """Wait for the CUDA work behind ``out`` (a tensor or a tree of them);
-    a result on the CPU is ready when it is returned."""
-    for leaf in tree_leaves(out):
-        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
-            torch.cuda.synchronize(leaf.device)
-            return
-
-
-def time_blocked(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
-    """Mean seconds per call, waiting for the device after every call
-    (includes dispatch latency — what a host-driven loop like the
-    reference's scipy L-BFGS pays every iteration)."""
-    for _ in range(warmup):
-        _block(fn(*args))
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        _block(fn(*args))
-    return (time.perf_counter() - t0) / iters
 
 
 # -- spans --------------------------------------------------------------------
@@ -213,19 +183,3 @@ def profiler_trace(log_dir: Optional[str]):
     with open(f"{stem}.spans.json", "w") as f:
         json.dump(out, f)
 
-
-def flops_per_point(dims, n_streams: int) -> int:
-    """FLOPs per point of one MLP jet forward: 2 per weight per stream."""
-    return 2 * n_streams * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-
-
-def bwd_flops_per_point(dims, n_streams: int) -> int:
-    """FLOPs per point that the backward of one MLP jet needs: per hidden
-    layer the forward once (2S per weight), the weight gradient and the
-    input cotangent (2S each); the head's weight gradient and input
-    cotangent.  The kernel's recompute of the non-value pre-activations in
-    the reverse sweep saves memory, not work the function needs, so it is
-    not counted."""
-    s = n_streams
-    widths = [a * b for a, b in zip(dims[:-1], dims[1:])]
-    return 6 * s * sum(widths[:-1]) + 4 * s * widths[-1]

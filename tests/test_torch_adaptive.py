@@ -194,11 +194,10 @@ def test_nan_debugging_scope():
 
 
 def test_timers_and_trace_on_the_cpu(tmp_path):
-    """The timer runs on CPU tensors (nothing to synchronise), and the trace
-    writes a profiler file only when given a directory, with the program's
-    spans of the same seconds beside it on the profiler file's clock."""
+    """The trace writes a profiler file only when given a directory, with
+    the program's spans of the same seconds beside it on the profiler file's
+    clock."""
     x = torch.ones(64, 64)
-    assert tprof.time_blocked(torch.matmul, x, x, iters=3, warmup=1) > 0
     with tprof.profiler_trace(None):
         with tprof.span("outside") as sp:
             assert sp is tprof.NO_SPAN

@@ -148,6 +148,44 @@ def test_run_pipeline_matches_jax(net_bc):
                                    atol=1e-7 * max(1.0, np.abs(b).max()))
 
 
+TARGET_SCALE = 0.01
+PRETRAIN = 3
+TARGET_MAXITER = 10
+
+
+def test_uv_phase_stops_at_target_like_jax():
+    """The net-BC plate at its published widths (uv 8 x 70, dist and part
+    4 x 20), scale 0.01 padded to 8, from JAX's seed-0 parameters in
+    float64: 3 pretraining iterations of dist and of part, then the uv
+    phase to a threshold between the 6th and 7th losses of JAX's uncut run;
+    the same iterations (7) and the final loss within 1e-8 relative."""
+    jcase = jplate.build(scale=TARGET_SCALE, pad_to_multiple_of=8,
+                         dtype=np.float64, jet_impl="xla")
+    host = jax.tree.map(np.asarray, jcase.init_params(seed=0))
+    pretrain = {"dist": PRETRAIN, "part": PRETRAIN, "uv": 0}
+    jp, _ = jbase.run_pipeline(jcase, _jtree(host), dtype=jnp.float64,
+                               maxiter_override=pretrain, segment=50)
+    jfn, jsub, _ = jbase._phase_loss_fn(jcase, jcase.phases[-1], jp)
+    hist = np.asarray(jminimize(jfn, jsub, maxiter=TARGET_MAXITER,
+                                segment=TARGET_MAXITER).loss_history)
+    assert hist[6] < hist[5], hist
+    threshold = float(0.5 * (hist[5] + hist[6]))
+    jres = jminimize(jfn, jsub, maxiter=TARGET_MAXITER,
+                     segment=TARGET_MAXITER, target=threshold)
+    assert jres.n_iters == 7
+
+    tcase = tplate.build(scale=TARGET_SCALE, pad_to_multiple_of=8, dtype=F64,
+                         device="cpu")
+    tp, _ = tbase.run_pipeline(tcase, _ttree(host), dtype=F64,
+                               maxiter_override=pretrain, segment=50)
+    tfn, tsub, _ = tbase._phase_loss_fn(tcase, tcase.phases[-1], tp)
+    tres = tminimize(tfn, tsub, maxiter=TARGET_MAXITER, segment=10,
+                     target=threshold)
+    assert tres.n_iters == jres.n_iters
+    assert tres.final_loss <= threshold
+    assert _rel(tres.final_loss, jres.final_loss) <= REL
+
+
 def test_pipeline_mid_phase_resume(net_bc, tmp_path):
     """A run checkpointed every segment and cut after 4 uv iterations,
     resumed with ``resume=True`` and a budget of 8: the remaining 4

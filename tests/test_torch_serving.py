@@ -158,7 +158,7 @@ MUST_WALK = {f"pinn_elastodynamics_torch.{m}" for m in (
     "run", "serving", "cases.plate_hole", "cases.wave_common",
     "cases.wave_confined", "cases.wave_infinite", "cases.wave_semi_infinite",
     "train.curriculum", "train.lbfgs", "utils.logging", "cases.elastic3d",
-    "train.lbfgs_host", "train.step", "entry", "bench")}
+    "train.lbfgs_host", "train.step", "entry")}
 
 
 def test_port_never_imports_jax():
