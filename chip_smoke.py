@@ -19,7 +19,8 @@ use only), then, in order:
 4. serves both quarter-plate models at full width (random weights from a
    numpy seed, through ``params_from_jax``) behind ``FieldServer`` and checks
    every answer against a direct evaluation, the direct evaluation against
-   the plain float64 forward, and the launch counts of the kernels;
+   the plain float64 forward, the launch counts of the kernels, and that
+   each evaluator served its chunks as replays of its CUDA graph;
 5. times each forward kernel and its plain version with CUDA events beside
    its bound, at N = 65,536, order 1 (serving) and N = 103,711, order 2
    (the shape training launches), B1 at the wave configurations'
@@ -2704,6 +2705,7 @@ def main() -> int:
     from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
     from pinn_elastodynamics_torch.models.fourier import FourierMLPFieldModel
     from pinn_elastodynamics_torch.models.fields import FieldSpec, SECOND_ORDER
+    from pinn_elastodynamics_torch import serving
     from pinn_elastodynamics_torch.serving import FieldEvaluator, FieldServer
     from pinn_elastodynamics_torch.train.checkpoint import params_from_jax
 
@@ -2817,7 +2819,8 @@ def main() -> int:
             ana_p, ana_p64, "fused_mlp_jet"),
     }
     requests = {size: plate_points(rng, size) for size in REQUEST_SIZES}
-    evaluators, servers, answers, grown = {}, {}, {}, {}
+    evaluators, servers, answers, grown, replayed = {}, {}, {}, {}, {}
+    serving.reset_chunks()
     try:
         for name, (model, params, _, _) in models.items():
             ev = FieldEvaluator(model, params, name=name, device="cuda").warmup()
@@ -2826,6 +2829,7 @@ def main() -> int:
         fj.reset_launches()
         for name, server in servers.items():
             before = dict(fj.LAUNCHES)
+            graph_before = serving.CHUNKS["graph"]
             host, port = server.address
             base = f"http://{host}:{port}"
             code, body = http("GET", base + "/healthz")
@@ -2839,11 +2843,17 @@ def main() -> int:
                 assert code == 200 and body["n"] == size, (code, body.get("n"))
                 answers[name, size] = body["fields"]
             grown[name] = {k: fj.LAUNCHES[k] - before[k] for k in fj.LAUNCHES}
+            replayed[name] = serving.CHUNKS["graph"] - graph_before
         launches = dict(fj.LAUNCHES)
     finally:
         for server in servers.values():
             server.stop()
     log(f"  launches while serving: {launches} (per model {grown})")
+    log(f"  chunks while serving: {serving.CHUNKS} (replays per model "
+        f"{replayed})")
+    for name, count in replayed.items():
+        if count < 1:
+            raise AssertionError(f"{name} served no chunk by its CUDA graph")
     for name, (_, _, _, kernel) in models.items():
         if grown[name][kernel] < 1:
             raise AssertionError(f"{name} did not launch {kernel}")

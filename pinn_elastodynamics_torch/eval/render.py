@@ -29,6 +29,24 @@ def _predict_chunk(model, params, xyt: torch.Tensor) -> Dict[str, torch.Tensor]:
     return out
 
 
+def padded_points(xy: np.ndarray, t: float, out: np.ndarray) -> np.ndarray:
+    """Write the points ``[xy, t]`` of ``xy`` (N, ndim) into the first N
+    rows of ``out`` (at least N rows, ndim + 1 columns, in the forward's
+    dtype) and zeros into the rest: the padded layout every chunk takes."""
+    n, ndim = xy.shape
+    out[:n, :ndim] = xy
+    out[:n, ndim] = t
+    out[n:] = 0
+    return out
+
+
+def with_amp(fields: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``fields`` with ``amp``, the displacement's magnitude, computed on
+    the host from ``u`` and ``v``."""
+    fields["amp"] = np.sqrt(fields["u"] ** 2 + fields["v"] ** 2)
+    return fields
+
+
 def predict_fields(
     model, params, xy: np.ndarray, t: float, *,
     chunk: int = 65536, dtype=np.float32, device="cuda",
@@ -38,33 +56,31 @@ def predict_fields(
     ``params`` must live on ``device`` in ``dtype``.  Points are padded to
     whole chunks of ``chunk`` rows (the padding rows are dropped from the
     result), so every chunk has one shape.  Spans: ``render.chunk`` (its
-    real ``rows`` and its ``pad``) around ``render.h2d`` (padding and the
-    copy to the device), ``render.jet`` (the forward's enqueue) and
-    ``render.d2h`` (the fields' copies back, the first of which waits for
-    the forward); then ``render.merge``.
+    real ``rows``, its ``pad`` and ``graph`` = 0: no chunk here is a graph
+    replay) around ``render.h2d`` (the copy to the device), ``render.jet``
+    (the forward's enqueue) and ``render.d2h`` (the fields' copies back,
+    the first of which waits for the forward); then ``render.merge``.
     """
     dev = resolve_device(device)
     tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
     n = xy.shape[0]
-    tcol = np.full((n, 1), t)
-    pts = np.concatenate([xy, tcol], axis=1).astype(dtype)
+    pts = padded_points(
+        xy, t, np.empty((-(-n // chunk) * chunk, xy.shape[1] + 1), dtype))
     outs = []
     for start in range(0, n, chunk):
-        block = pts[start : start + chunk]
-        pad = chunk - block.shape[0]
-        with span("render.chunk", rows=block.shape[0], pad=pad):
+        rows = min(chunk, n - start)
+        with span("render.chunk", rows=rows, pad=chunk - rows, graph=0):
             with span("render.h2d"):
-                if pad:
-                    block = np.pad(block, ((0, pad), (0, 0)))
-                xyt = torch.as_tensor(block, dtype=tdtype, device=dev)
+                xyt = torch.as_tensor(pts[start : start + chunk],
+                                      dtype=tdtype, device=dev)
             with span("render.jet"):
                 res = _predict_chunk(model, params, xyt)
             with span("render.d2h"):
-                outs.append({k: v[: chunk - pad].cpu().numpy()
+                outs.append({k: v[:rows].cpu().numpy()
                              for k, v in res.items()})
     with span("render.merge"):
         merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
-        merged["amp"] = np.sqrt(merged["u"] ** 2 + merged["v"] ** 2)
+        with_amp(merged)
     return merged
 
 
