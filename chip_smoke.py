@@ -65,8 +65,9 @@ use only), then, in order:
    Fourier64, whose model runs the eager jet as in JAX): for W1-W4 the
    value+grad of the main phase on the kernel path against the eager
    float64 path, exactly one forward and one backward launch, value+grad
-   timings with a profile, and 10 L-BFGS iterations as in phase 9; for W5
-   one value+grad with no kernel launch;
+   timings with a profile (but for W2, which the benchmark's cell
+   ``wave_confined_fourier.lbfgs`` times), and 10 L-BFGS iterations as in
+   phase 9; for W5 one value+grad with no kernel launch;
 12. runs ``run_time_curriculum`` on wave_infinite at full width (scale 0.1,
    stages of 10 s and 20 s, 4 iterations each) in a temporary directory:
    each stage's loss falls, one B1 and one B2 launch per evaluation, and a
@@ -235,6 +236,9 @@ WAVE_CONFIGS = {
         dict(bc="hard", fourier=FOURIER, fourier_scale=WAVE_FOURIER_SCALE),
         None, None, None),
 }
+# Phase 11 configurations that a cell of the benchmark (BENCHMARK.json)
+# times: checked here, not timed.
+BENCHMARK_CELLS = {"W2_confined_hard_fourier64": "wave_confined_fourier.lbfgs"}
 # Phase 12: the curriculum on wave_infinite and the CLI on wave_confined.
 CURRICULUM_SCALE = 0.1
 CURRICULUM_STAGES = ((10.0, 4), (20.0, 4))   # (max_t, L-BFGS iterations)
@@ -1098,8 +1102,9 @@ def drive_config(torch, name, case, params, per_eval):
     """Phase 11's checks of one configuration's only phase (every parameter
     trained): one value+grad with exactly ``per_eval`` launches; unless
     that is empty (an eager model), the value+grad against eager float64
-    with its peak device memory, value+grad timings with a profile, and
-    LBFGS_ITERS L-BFGS iterations.  Returns the launches and the L-BFGS
+    with its peak device memory, value+grad timings with a profile (unless
+    a cell of the benchmark times the configuration), and LBFGS_ITERS
+    L-BFGS iterations.  Returns the launches and the L-BFGS
     result (None for an eager model)."""
     from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
 
@@ -1115,7 +1120,8 @@ def drive_config(torch, name, case, params, per_eval):
     log(f"  {name}: float64 check at scale 1.0, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del grads
-    value_and_grad_timings(torch, name, case, phase, params, fn, sub)
+    if name not in BENCHMARK_CELLS:
+        value_and_grad_timings(torch, name, case, phase, params, fn, sub)
     more, res = lbfgs_run(torch, name, fn, sub, phase.ftol, per_eval)
     return add_launches(launches, more), res
 

@@ -25,7 +25,9 @@ On a CPU tensor the forward and backward take their plain versions
 ``_remat_forward`` / ``_reverse_sweep`` recurrence in PyTorch, any float
 dtype); on a CUDA tensor they launch the kernels or raise.  ``LAUNCHES``
 counts the backward kernels' launches, ``BODIES`` the B2/B3b launches by the
-kernel body the library chose for the net's widths.
+kernel body the library chose for the net's widths, ``SEED_GRADS`` the
+seeded jet's backwards (B3b) by whether any seed stream's cotangent was
+needed.
 """
 
 from __future__ import annotations
@@ -59,6 +61,12 @@ LAUNCHES = {"fused_mlp_jet_bwd": 0, "fused_seed_jet_bwd": 0,
 # nets too wide for two weight buffers (the 140-wide ones; 100 x 8 at 32
 # points).  Not part of LAUNCHES.
 BODIES = {"tile": 0, "wide140": 0}
+# Backwards of the seeded jet (B3b on the card, its plain version on the
+# CPU): "needed" where autograd asked for the cotangent of h0, d or dtt,
+# "unneeded" where it asked for the parameters' gradients alone (a frozen
+# embedding), though the seed cotangent is computed all the same.  Not part
+# of LAUNCHES; cleared by reset_seed_grads().
+SEED_GRADS = {"needed": 0, "unneeded": 0}
 NETS = ("uv", "dist", "part")
 
 
@@ -66,6 +74,11 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, BODIES):
         for name in counts:
             counts[name] = 0
+
+
+def reset_seed_grads() -> None:
+    for name in SEED_GRADS:
+        SEED_GRADS[name] = 0
 
 
 # -- plain versions ---------------------------------------------------------
@@ -352,6 +365,8 @@ class _FusedSeedJet(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, cot):
         h0, d, dtt, *leaves = ctx.saved_tensors
+        needed = any(ctx.needs_input_grad[:3])
+        SEED_GRADS["needed" if needed else "unneeded"] += 1
         grads, dseed = fused_mlp_jet_bwd(_params(leaves), h0, d, dtt,
                                          cot.contiguous(), full_dx=True)
         a = d.shape[0]

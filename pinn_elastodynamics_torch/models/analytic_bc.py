@@ -5,6 +5,8 @@ distance factor D and particular field P are smooth closed-form functions
 (per-case definitions live with their cases, e.g.
 cases/plate_hole.py::analytic_dist/analytic_part); their jets come from
 forward-mode AD (ops/jet.py::jet_of_fn) and only ũ ('uv') is a network.
+The factors' jets and values open the span ``model.factors`` (``rows``;
+``order``, 0 for the plain forward).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from torch.func import vmap
 
 from ..ops.jet import Jet, jet_of_fn
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +44,13 @@ class AnalyticCompositeFieldModel:
     def jet(self, params, xyt: torch.Tensor, order: Optional[int] = None) -> Jet:
         order = self.spec.jet_order if order is None else order
         uv = self.uv_model.jet(params["uv"], xyt, order=order)
-        dist = jet_of_fn(self.dist_fn, xyt, order=order)
-        part = jet_of_fn(self.part_fn, xyt, order=order)
+        with span("model.factors", rows=xyt.shape[0], order=order):
+            dist = jet_of_fn(self.dist_fn, xyt, order=order)
+            part = jet_of_fn(self.part_fn, xyt, order=order)
         return part + dist * uv
 
     def apply(self, params, xyt: torch.Tensor) -> torch.Tensor:
         uv = self.uv_model.apply(params["uv"], xyt)
-        return vmap(self.part_fn)(xyt) + vmap(self.dist_fn)(xyt) * uv
+        with span("model.factors", rows=xyt.shape[0], order=0):
+            part, dist = vmap(self.part_fn)(xyt), vmap(self.dist_fn)(xyt)
+        return part + dist * uv

@@ -10,7 +10,8 @@ Counterpart of ``pinn_elastodynamics_tpu/models/fourier.py``.  The embedding
 computed here in plain tensor ops; the MLP tail continues from that seed,
 through the fused seeded-jet kernels when ``jet_impl`` selects them (whose
 backward returns the seed cotangent, so gradients reach ``B``).  Params
-are {'B': (A, F), 'mlp': [...]}.
+are {'B': (A, F), 'mlp': [...]}.  The embedding opens the span
+``model.embed`` (``rows``; ``order``, 0 for the plain forward).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.jet import Jet
+from ..utils.profiling import span
 from . import mlp as mlp_mod
 from .fields import FieldSpec, use_kernel
 
@@ -67,7 +69,9 @@ class FourierMLPFieldModel:
         return torch.cat([torch.sin(z), torch.cos(z)], dim=1)
 
     def apply(self, params, xyt: torch.Tensor) -> torch.Tensor:
-        return mlp_mod.mlp_apply(params["mlp"], self._embed(params, xyt))
+        with span("model.embed", rows=xyt.shape[0], order=0):
+            h = self._embed(params, xyt)
+        return mlp_mod.mlp_apply(params["mlp"], h)
 
     def _embed_jet(self, params, xyt, order):
         """Analytic jet of the embedding: (h, d, dtt) as in the module doc."""
@@ -93,7 +97,8 @@ class FourierMLPFieldModel:
 
     def jet(self, params, xyt: torch.Tensor, order: Optional[int] = None) -> Jet:
         order = self.spec.jet_order if order is None else order
-        h, d, dtt = self._embed_jet(params, xyt, order)
+        with span("model.embed", rows=xyt.shape[0], order=order):
+            h, d, dtt = self._embed_jet(params, xyt, order)
         if use_kernel(self.jet_impl, xyt):
             from ..kernels.fused_jet_vjp import fused_seed_jet_vjp
 
