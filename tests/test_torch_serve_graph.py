@@ -9,8 +9,9 @@ for the net-BC plate (B4) and the analytic + Fourier64 plate (B1's seeded
 forward and plain ops for D and P); check that replayed answers own their
 arrays too, and survive the allocator handing freed memory to others;
 count one capture per evaluator and the launches of each
-request; fall back to eager where the capture raises; and serve two HTTP
-threads the same bits.  This file imports no JAX, so the card tests run
+request; keep a hard-BC model's stored factors out of the graph; fall
+back to eager where the capture raises; and serve two HTTP threads the
+same bits.  This file imports no JAX, so the card tests run
 on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_serve_graph.py -q
@@ -30,6 +31,8 @@ from pinn_elastodynamics_torch import serving
 from pinn_elastodynamics_torch.cases import plate_hole
 from pinn_elastodynamics_torch.eval.render import predict_fields
 from pinn_elastodynamics_torch.kernels import fused_jet
+from pinn_elastodynamics_torch.models import analytic_bc
+from pinn_elastodynamics_torch.models.analytic_bc import FACTOR_JETS
 from pinn_elastodynamics_torch.models.fields import (
     SECOND_ORDER,
     FieldSpec,
@@ -197,6 +200,23 @@ def test_replays_survive_memory_churn(card, fresh_chunks):
     torch.cuda.synchronize(card)
     _assert_same(ev.evaluate(xy, T), want)
     _assert_same(_eager(ev, xy, T), want)
+    assert CHUNKS["captures"] == 1 and CHUNKS["eager"] == 0
+
+
+@pytest.mark.card
+def test_graph_computes_the_factors_from_its_input(card, fresh_chunks):
+    """A hard-BC model's closed-form factors stay out of the graph: the
+    capture stores none (one ``bypass`` in ``FACTOR_JETS``), so two
+    different requests in a row each get the eager bits."""
+    model = MODELS["analytic_fourier64"]()
+    ev = FieldEvaluator(model, _init(model, card), device=card)
+    analytic_bc.reset_factor_jets()
+    requests = [(_points(FRAME, seed=21), T), (_points(5_000, seed=22), 2 * T)]
+    answers = [ev.evaluate(xy, t) for xy, t in requests]
+    # the warm-up on the graph's input stores; the capture bypasses
+    assert FACTOR_JETS == {"hit": 0, "miss": 1, "bypass": 1}
+    for got, (xy, t) in zip(answers, requests):
+        _assert_same(got, _eager(ev, xy, t))
     assert CHUNKS["captures"] == 1 and CHUNKS["eager"] == 0
 
 

@@ -16,7 +16,8 @@ size with seeded random weights.
   spans under a profiler.
 - On the card (``card``), at the cell's full size: one value+grad launches
   the seeded B1 and B3b once each, B3b on the wide140 body, its seed
-  cotangent unneeded, and the loss is the float64 reference's.  This file
+  cotangent unneeded, and the loss is the float64 reference's; the next
+  value+grad reads the closed-form factors back from the store.  This file
   imports no JAX, so the card test runs there with ``--noconftest``.
 """
 
@@ -39,6 +40,8 @@ from pinn_elastodynamics_torch.cases import wave_confined
 from pinn_elastodynamics_torch.cases.base import _phase_loss_fn
 from pinn_elastodynamics_torch.kernels import fused_jet as fj
 from pinn_elastodynamics_torch.kernels import fused_jet_vjp as fv
+from pinn_elastodynamics_torch.models import analytic_bc
+from pinn_elastodynamics_torch.models.analytic_bc import FACTOR_JETS
 from pinn_elastodynamics_torch.ops.jet import jet_of_fn
 from pinn_elastodynamics_torch.train.step import value_and_grad
 from pinn_elastodynamics_torch.utils import profiling
@@ -223,8 +226,10 @@ def card():
 def test_full_cell_runs_the_seeded_kernels_on_the_card(cfg, card):
     """One value+grad of the cell's phase loss at its full size, float32
     kernels with TF32 off: exactly one seeded B1 and one B3b, on the
-    wide140 body, B3b's seed cotangent counted unneeded; the loss within
-    1e-5 of the float64 reference (the cell's ``loss_gap`` limit)."""
+    wide140 body, B3b's seed cotangent counted unneeded, the factors of
+    both banks computed and stored; the loss within 1e-5 of the float64
+    reference (the cell's ``loss_gap`` limit).  A second value+grad reads
+    the factors back and gives the same loss."""
     full = dict(cfg, scale=1.0)
     seed = 2**31 + 5
     host = adapter.banks(full, seed)
@@ -236,6 +241,7 @@ def test_full_cell_runs_the_seeded_kernels_on_the_card(cfg, card):
         fj.reset_launches()
         fv.reset_launches()
         fv.reset_seed_grads()
+        analytic_bc.reset_factor_jets()
         loss, _ = value_and_grad(sub_fn, sub0)
         torch.cuda.synchronize(card)
         launches = {**fj.LAUNCHES, **fv.LAUNCHES}
@@ -244,6 +250,11 @@ def test_full_cell_runs_the_seeded_kernels_on_the_card(cfg, card):
         assert launches == want
         assert fv.BODIES == {"tile": 0, "wide140": 1}
         assert fv.SEED_GRADS == {"needed": 0, "unneeded": 1}
+        assert FACTOR_JETS == {"hit": 0, "miss": 2, "bypass": 0}
+        # the next value+grad reads both banks' factors back
+        again, _ = value_and_grad(sub_fn, sub0)
+        assert FACTOR_JETS == {"hit": 2, "miss": 2, "bypass": 0}
+        assert torch.equal(again, loss)
         w64 = {k: [(a.double(), b.double()) for a, b in v]
                for k, v in w.items()}
         x = torch.cat([t.reshape(-1) for a, b in w64["mlp"] for t in (a, b)])
