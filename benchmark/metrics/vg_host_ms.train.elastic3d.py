@@ -1,0 +1,6 @@
+"""``vg_host_ms.train`` of the E1 cell, ``elastic3d.lbfgs``, which moves
+``train_evals_per_s``.  The reader is ``vg_host_ms.train``'s."""
+
+from benchmark.core import metric_reader
+
+read = metric_reader("vg_host_ms.train")

@@ -236,9 +236,10 @@ WAVE_CONFIGS = {
         dict(bc="hard", fourier=FOURIER, fourier_scale=WAVE_FOURIER_SCALE),
         None, None, None),
 }
-# Phase 11 configurations that a cell of the benchmark (BENCHMARK.json)
-# times: checked here, not timed.
-BENCHMARK_CELLS = {"W2_confined_hard_fourier64": "wave_confined_fourier.lbfgs"}
+# Phase 11 and 15 configurations that a cell of the benchmark
+# (BENCHMARK.json) times: checked here, not timed.
+BENCHMARK_CELLS = {"W2_confined_hard_fourier64": "wave_confined_fourier.lbfgs",
+                   "E1_elastic3d": "elastic3d.lbfgs"}
 # Phase 12: the curriculum on wave_infinite and the CLI on wave_confined.
 CURRICULUM_SCALE = 0.1
 CURRICULUM_STAGES = ((10.0, 4), (20.0, 4))   # (max_t, L-BFGS iterations)

@@ -24,6 +24,7 @@ from ..ops import residuals as res_ops
 from ..ops import traction as trac_ops
 from ..ops.elasticity import Material
 from ..parallel.mesh import mesh_of, sum_grads_over_ranks, sum_over_ranks
+from ..utils.profiling import span
 
 DT_PREFIX = "dt:"  # channel name "dt:u" = time derivative of channel u
 
@@ -76,7 +77,9 @@ def _net_view(model, params, net: Optional[str]):
 @dataclasses.dataclass(frozen=True)
 class PDEResidual:
     """Momentum + constitutive residuals on a collocation bank: components
-    'f_uv' (momentum + velocity definition) and 'f_s' (constitutive)."""
+    'f_uv' (momentum + velocity definition) and 'f_s' (constitutive).
+    After the model's jet, the residuals and their masked sums open the
+    span ``loss.residual``."""
 
     plane: str
     name_uv: str = "f_uv"
@@ -86,11 +89,12 @@ class PDEResidual:
                  sums: MaskedSums):
         spec: FieldSpec = model.spec
         jet = model.jet(params, bank.xyt)
-        res = res_ops.residuals(jet, spec, mat, self.plane)
-        for n in res_ops.momentum_group(spec):
-            sums.add(self.name_uv, res[n], bank.mask)
-        for n in res_ops.stress_group(spec):
-            sums.add(self.name_s, res[n], bank.mask)
+        with span("loss.residual", ndim=spec.ndim, rows=bank.xyt.shape[0]):
+            res = res_ops.residuals(jet, spec, mat, self.plane)
+            for n in res_ops.momentum_group(spec):
+                sums.add(self.name_uv, res[n], bank.mask)
+            for n in res_ops.stress_group(spec):
+                sums.add(self.name_s, res[n], bank.mask)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,6 +17,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.jet import Jet
+from ..utils.profiling import span
 
 Params = List[dict]  # [{'W': (in, out), 'b': (out,)} per layer]
 
@@ -73,9 +74,15 @@ def mlp_apply(
     """Plain forward: tanh hidden layers, linear head.
 
     ``lb``/``ub`` enable the input normalization to ``[-1, 1]``; pass None
-    to disable.
+    to disable.  The normalization opens the span ``model.normalize``
+    (``order`` 0), which covers its synchronous copies of lb/ub to the
+    device.
     """
-    h = x if lb is None else _normalize(x, lb, ub)
+    if lb is None:
+        h = x
+    else:
+        with span("model.normalize", rows=x.shape[0], order=0):
+            h = _normalize(x, lb, ub)
     for layer in params[:-1]:
         h = torch.tanh(h @ layer["W"] + layer["b"])
     last = params[-1]
@@ -92,15 +99,17 @@ def seed_jet(
     """Input seed streams ``(h, d, dtt)`` of raw or normalized coordinates.
 
     ``h`` is (N, A), ``d`` is (A, N, A) (the identity, scaled by the
-    normalization), ``dtt`` is (N, A) zeros or None.
+    normalization), ``dtt`` is (N, A) zeros or None.  The normalization
+    opens the span ``model.normalize``, as in ``mlp_apply``.
     """
     n, a = x.shape
     eye = torch.eye(a, dtype=x.dtype, device=x.device)
     if lb is None:
         h = x
     else:
-        h = _normalize(x, lb, ub)
-        eye = eye * (2.0 / (_as_vec(ub, x) - _as_vec(lb, x)))[None, :]
+        with span("model.normalize", rows=n, order=order):
+            h = _normalize(x, lb, ub)
+            eye = eye * (2.0 / (_as_vec(ub, x) - _as_vec(lb, x)))[None, :]
     d = eye[:, None, :].expand(a, n, a)
     dtt = torch.zeros((n, a), dtype=x.dtype, device=x.device) if order >= 2 else None
     return h, d, dtt
